@@ -5,12 +5,16 @@
 
 Builds the port's kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card at the shapes the
-encoder gives it, drives the main path — `AIEncoder.encode` on a 1080p
-frame with the trained ETH-CNN at QP 32 — checks the stream with the HM
-reference decoder, and prints one JSON object per phase. The last line
-is `{"ok": true, "device": {...}}`; any failed phase ends the run with a
-non-zero exit code and no such line. Without a CUDA device it fails at
-once.
+encoder gives it (the 35-mode SATD kernel at its three 1080p batches, the
+reconstruction kernel on random legal decisions at 416x240 and on the
+encoder's own decisions at 1080p), drives the main paths with the trained
+ETH-CNN at QP 32 on 1080p frames — `AIEncoder.encode` frame by frame and
+the frame-batched `FrameParallelAI.encode`, whose streams must be the same
+bytes — runs the 1080p benchmark at a reduced depth, checks the stream
+with the HM reference decoder, and prints one JSON object per phase. The
+last line is `{"ok": true, "device": {...}}`; any failed phase ends the
+run with a non-zero exit code and no such line. Without a CUDA device it
+fails at once.
 """
 
 import json
@@ -33,7 +37,11 @@ HM_DECODER = os.path.join(ROOT, "tools", "hm", "TAppDecoderStatic")
 PEAK_BYTES_S = 3.35e12
 PEAK_INT_OPS_S = 33.5e12
 
-N_CTU_1080P = 30 * 17
+CTUS_X_1080P, CTUS_Y_1080P = 30, 17
+N_CTU_1080P = CTUS_X_1080P * CTUS_Y_1080P
+#: K2's launches per frame batch: one per wavefront diagonal
+#: d = ctu_x + 2 * ctu_y, for luma and again for chroma
+RECON_LAUNCHES_1080P = 2 * (CTUS_X_1080P + 2 * (CTUS_Y_1080P - 1))
 #: K1's three launches per 1080p frame: n -> batch of nodes
 SHAPES_1080P = {16: N_CTU_1080P * 16, 8: N_CTU_1080P * 64,
                 4: N_CTU_1080P * 256}
@@ -122,6 +130,72 @@ def check_kernel(device):
     return per_n, max_err
 
 
+def planes_equal(got, want):
+    """Names of the planes of two FramePlanes that differ, and the
+    largest absolute difference."""
+    bad, err = [], 0
+    for name, g, w in zip(want._fields, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            bad.append(name)
+            continue
+        d = int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+        err = max(err, d)
+        if d:
+            bad.append(name)
+    return bad, err
+
+
+def check_recon_small(device):
+    """K2 against its plain version on seeded random legal decisions (all
+    four depths, all 35 modes, NxN) at 416x240, three frames."""
+    from hevc_tpu_torch.core.yuv import pad_frame
+    from hevc_tpu_torch.pipeline import bench_hooks, recon, recon_kernel
+    w, h, F = 416, 240, 3
+    max_err = 0
+    for qp in (22, 37):
+        frames = [pad_frame(f, w, h)
+                  for f in bench_hooks.synth_structured(F, qp, w, h)]
+        dec = [bench_hooks.random_legal_decisions(w, h, 10 * qp + f)
+               for f in range(F)]
+        stack = lambda xs: torch.as_tensor(np.stack(xs)).to(device)
+        args = (stack([f.y for f in frames]), stack([f.cb for f in frames]),
+                stack([f.cr for f in frames]),
+                stack([d[0] for d in dec]).to(torch.int32),
+                stack([d[2] for d in dec]).to(torch.int32),
+                stack([d[3] for d in dec]))
+        for rdoq in (True, False):
+            kw = dict(qp=qp, pad_w=w, pad_h=h, rdoq=rdoq)
+            recon_kernel.launches = 0
+            got = recon.encode_frame_planes_batched(*args, **kw)
+            torch.cuda.synchronize()
+            launches = recon_kernel.launches
+            want = recon.encode_frame_planes_plain_batched(*args, **kw,
+                                                           device=device)
+            bad, err = planes_equal(got, want)
+            max_err = max(max_err, err)
+            if bad or launches != 2 * (7 + 2 * 3):
+                fail(f"recon_frame 416x240 qp={qp} rdoq={rdoq}: planes {bad} "
+                     f"differ from the plain version (max abs err {err}), "
+                     f"{launches} launches")
+            say({"phase": "recon_vs_plain", "size": "416x240", "frames": F,
+                 "decisions": "random legal", "qp": qp, "rdoq": rdoq,
+                 "planes_equal": 6, "tolerance": 0, "launches": launches,
+                 "nonzero_levels": int(want.coef_y.ne(0).sum())})
+    return max_err
+
+
+def recon_kernel_times(args, kw, reps=5):
+    """Milliseconds of K2 for one frame batch: luma launches, chroma
+    launches, and both as the encoder issues them."""
+    from hevc_tpu_torch.pipeline import recon_kernel
+    out = {}
+    for key, comps in (("luma_ms", ("luma",)), ("chroma_ms", ("chroma",)),
+                       ("ms", ("luma", "chroma"))):
+        out[key] = time_ms(lambda: recon_kernel.encode_frame_planes_cuda(
+            *args, **kw, components=comps), reps)
+    return out
+
+
 def encode(frames, cnn, w, h, device=None):
     from hevc_tpu_torch.entropy.headers import EncoderConfig
     from hevc_tpu_torch.pipeline.ai import AIEncoder
@@ -170,38 +244,54 @@ def main():
     device = torch.device("cuda")
 
     import hevc_tpu_torch  # noqa: F401  (sets TF32 off)
-    from hevc_tpu_torch import native
-    from hevc_tpu_torch.core.yuv import psnr
+    from hevc_tpu_torch import cuda_build, native
+    from hevc_tpu_torch.core.yuv import pad_frame, psnr
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
     from hevc_tpu_torch.models import eth_cnn
     from hevc_tpu_torch.ops import intra_mm
-    from hevc_tpu_torch.pipeline import bench_hooks, recon
+    from hevc_tpu_torch.parallel.frames import FrameParallelAI
+    from hevc_tpu_torch.pipeline import bench_hooks, recon, recon_kernel
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
 
-    # 2. build (from the sources of this checkout, nothing kept from before)
-    for so in (intra_mm._SO, native._SO):
+    # 2. build (from the sources of this checkout, nothing kept from
+    # before; one nvcc per kernel source, both started together)
+    for so in (intra_mm._SO, recon_kernel._SO, native._SO):
         if os.path.exists(so):
             os.remove(so)
     t0 = time.perf_counter()
+    cuda_build.build_all([(intra_mm._CSRC, intra_mm._SO, ()),
+                          recon_kernel.build_job()])
     intra_mm.load_kernel()
+    recon_kernel.load_kernel()
     t_kernel = time.perf_counter() - t0
     native.load()
-    say({"phase": "build", "satd35_nvcc_s": t_kernel,
+    say({"phase": "build", "kernels_nvcc_s": t_kernel,
          "native_entropy_gxx_s": time.perf_counter() - t0 - t_kernel,
-         "command": " ".join(intra_mm.nvcc_command())})
+         "commands": [" ".join(intra_mm.nvcc_command()),
+                      " ".join(recon_kernel.nvcc_command())]})
 
-    # 3. kernel against its plain version on the card
+    # 3. each kernel against its plain version on the card
     per_n, max_err = check_kernel(device)
+    recon_err = check_recon_small(device)
 
-    # 4. main path: one 1080p frame through AIEncoder.encode
+    # 4. first main path: eight 1080p frames, one at a time, through
+    # AIEncoder.encode (the reconstruction kernel with a frame batch of 1)
     cnn = eth_cnn.load_npz(WEIGHTS)
-    frames = bench_hooks.synth_1080p_structured(n_frames=1)
+    cfg = EncoderConfig(1920, 1080, qp=32)
+    frames = bench_hooks.synth_1080p_structured(n_frames=8)
     torch.cuda.synchronize()
-    intra_mm.launches = 0
-    recon.batches = 0
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
     stream, recons, stats, wall = encode(frames, cnn, 1920, 1080)
-    launches = intra_mm.launches
-    if launches != 3 * len(frames):
-        fail(f"satd35 launched {launches} times for {len(frames)} frame(s), "
-             "expected 3 per frame")
+    ai_launches = {"satd35": intra_mm.launches,
+                   "recon_frame": recon_kernel.launches}
+    if ai_launches["satd35"] != 3 * len(frames):
+        fail(f"satd35 launched {ai_launches['satd35']} times for "
+             f"{len(frames)} frames, expected 3 per frame")
+    if ai_launches["recon_frame"] != RECON_LAUNCHES_1080P * len(frames):
+        fail(f"recon_frame launched {ai_launches['recon_frame']} times for "
+             f"{len(frames)} frames, expected {RECON_LAUNCHES_1080P} each")
+    if recon.batches != 0:
+        fail("AIEncoder.encode went through the plain reconstruction")
     psnr_y = float(psnr(recons[0].y, frames[0].y))
     for r in recons:
         if r.y.shape != (1080, 1920) or r.cb.shape != (540, 960):
@@ -210,21 +300,120 @@ def main():
         fail(f"PSNR-Y {psnr_y} is not sane")
     say({"phase": "encode_1080p", "frames": len(frames), "qp": 32,
          "bytes": len(stream), "psnr_y": psnr_y, "wall_s": wall,
-         "satd35_launches": launches, "recon_batches": recon.batches, **stats})
+         "s_per_frame": wall / len(frames),
+         "satd35_launches": ai_launches["satd35"],
+         "recon_frame_launches": ai_launches["recon_frame"],
+         "plain_recon_batches": recon.batches, **stats})
 
-    # 5. kernel path vs plain path, same frames at 416x240: same bytes
+    # 5. K2 against its plain version on the encoder's own decisions at
+    # 1080p (the plain version runs once: thousands of small launches),
+    # and K2's times at frame batches of 1 and 8
+    enc = AIEncoder(cfg, cnn=cnn)
+    pfs = [pad_frame(f, cfg.pad_width, cfg.pad_height) for f in frames]
+    dec = [enc.decide_frame_full(p.y, None, p.cb, p.cr) for p in pfs]
+    stack = lambda xs: torch.as_tensor(np.stack(xs)).to(device)
+    args8 = (stack([p.y for p in pfs]), stack([p.cb for p in pfs]),
+             stack([p.cr for p in pfs]), stack([d[0] for d in dec]),
+             stack([d[2] for d in dec]), stack([d[3] for d in dec]))
+    args1 = tuple(a[:1].contiguous() for a in args8)
+    kw = dict(qp=32, pad_w=cfg.pad_width, pad_h=cfg.pad_height, rdoq=True)
+    got = recon.encode_frame_planes_batched(*args1, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = recon.encode_frame_planes_plain_batched(*args1, **kw,
+                                                   device=device)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad, err = planes_equal(got, want)
+    recon_err = max(recon_err, err)
+    if bad:
+        fail(f"recon_frame 1080p: planes {bad} differ from the plain "
+             f"version (max abs err {err})")
+    if not np.array_equal(got.recon_y[0].cpu().numpy()[:1080], recons[0].y):
+        fail("recon_frame 1080p: not the reconstruction AIEncoder returned")
+    k2 = {"F1": recon_kernel_times(args1, kw),
+          "F8": recon_kernel_times(args8, kw)}
+    for key, a in (("F1", args1), ("F8", args8)):
+        nbytes, ops = bench_hooks.recon_work(a[3].cpu().numpy(),
+                                             a[5].cpu().numpy())
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_INT_OPS_S * 1e3
+        k2[key].update(bytes=nbytes, operations=ops,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       ms_per_frame=k2[key]["ms"] / a[0].shape[0])
+    say({"phase": "recon_vs_plain", "size": "1920x1080", "frames": 1,
+         "decisions": "the encoder's own", "qp": 32, "rdoq": True,
+         "planes_equal": 6, "tolerance": 0, "plain_ms": plain_ms,
+         "plain_batches": recon.batches, **{f"kernel_{k}": v
+                                            for k, v in k2.items()}})
+
+    # 6. second main path: the same eight frames through the frame-batched
+    # FrameParallelAI.encode, groups of 4, decide sub-batches of 2
+    penc = FrameParallelAI(cfg, cnn=cnn, decide_chunk=2)
+    torch.cuda.synchronize()
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+    t0 = time.perf_counter()
+    pstream, pstats = penc.encode(frames, with_hash_sei=True, chunk=4)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    fp_launches = {"satd35": intra_mm.launches,
+                   "recon_frame": recon_kernel.launches}
+    # per decide sub-batch K1 runs for node sizes 16, 8 and 4 where the
+    # sub-batch's max depth reaches them; K2 once per group of 4 frames
+    want_k1 = sum((md >= 2) + (md >= 3) + (md == 3 and cfg.nxn)
+                  for md, _ in penc.decide_batches)
+    if fp_launches["satd35"] != want_k1 or want_k1 != 3 * 4:
+        fail(f"frames_1080p: satd35 launched {fp_launches['satd35']} times, "
+             f"expected 3 for each of 4 decide sub-batches "
+             f"({penc.decide_batches})")
+    if fp_launches["recon_frame"] != 2 * RECON_LAUNCHES_1080P:
+        fail(f"frames_1080p: recon_frame launched "
+             f"{fp_launches['recon_frame']} times, expected "
+             f"{RECON_LAUNCHES_1080P} for each of 2 groups")
+    if recon.batches != 0:
+        fail("FrameParallelAI.encode went through the plain reconstruction")
+    if pstream != stream:
+        fail("frames_1080p: FrameParallelAI's stream differs from AIEncoder's")
+    say({"phase": "frames_1080p", "frames": len(frames), "chunk": 4,
+         "decide_chunk": 2, "qp": 32, "bytes": len(pstream),
+         "identical_to_AIEncoder": True, "psnr_y": psnr_y, "wall_s": pwall,
+         "frames_per_s": len(frames) / pwall,
+         "decide_batches": penc.decide_batches,
+         "satd35_launches": fp_launches["satd35"],
+         "recon_frame_launches": fp_launches["recon_frame"],
+         "recon_frame_launches_formula":
+             "groups * 2 * (ctus_x + 2 * (ctus_y - 1)) = 2 * 2 * 62",
+         "plain_recon_batches": recon.batches, **pstats})
+
+    # 7. the benchmark at a reduced depth (bench_torch.py runs 48 / 24 / 4)
+    say({"phase": "bench_encode_1080p",
+         **bench_hooks.bench_encode_1080p(n_frames=16, chunk=8,
+                                          decide_chunk=4)})
+
+    # 8. kernel path vs plain path, same frames at 416x240: same bytes.
+    # Both kernels are swapped for their plain versions, this check only.
     small = bench_hooks.synth_structured(2, 7, 416, 240)
     s_kernel, _, _, _ = encode(small, cnn, 416, 240)
-    kernel_fn = intra_mm.satd_all_modes
-    intra_mm.satd_all_modes = intra_mm.satd_all_modes_plain   # this check only
+    satd_fn = intra_mm.satd_all_modes
+    recon_fn = recon_kernel.encode_frame_planes_cuda
+    intra_mm.satd_all_modes = intra_mm.satd_all_modes_plain
+    recon_kernel.encode_frame_planes_cuda = (
+        lambda *a, **k: recon.encode_frame_planes_plain_batched(
+            *a, **k, device=device))
+    recon.batches = 0
     try:
         s_plain, _, _, _ = encode(small, cnn, 416, 240)
     finally:
-        intra_mm.satd_all_modes = kernel_fn
+        intra_mm.satd_all_modes = satd_fn
+        recon_kernel.encode_frame_planes_cuda = recon_fn
+    if recon.batches == 0:
+        fail("416x240: the plain-path run did not reach the plain recon")
     if s_kernel != s_plain:
         fail("416x240: the kernel-path stream differs from the plain-path one")
     say({"phase": "kernel_vs_plain_stream", "size": "416x240", "frames": 2,
-         "bytes": len(s_kernel), "identical": True})
+         "bytes": len(s_kernel), "identical": True,
+         "swapped": ["satd35", "recon_frame"]})
     # ... and against the same encoder run on the CPU (asked for explicitly):
     # the float RD costs must not tip a decision between host and card
     s_cpu, _, _, _ = encode(small, eth_cnn.load_npz(WEIGHTS, device="cpu"),
@@ -234,24 +423,43 @@ def main():
     say({"phase": "card_vs_cpu_stream", "size": "416x240", "frames": 2,
          "identical": True})
 
-    # 6. conformance
+    # 9. conformance: the stream both main paths made
     hm_check(stream, recons, 1920, 1080)
 
-    # 7. the kernels of the main path; times are sums over the three
-    # launches of one 1080p frame
+    # 10. the kernels of the main paths. satd35: times are sums over the
+    # three launches of one 1080p frame. recon_frame: one 1080p frame
+    # (frame batch of 1), the 8-frame batch beside it. `launches` is the
+    # count from the frame-batched path; both paths are in launches_by_path.
     tot = lambda key: sum(v[key] for v in per_n.values())
     ops_bound = all(v["bound_by"] == "operations" for v in per_n.values())
+    by_path = lambda name: {"AIEncoder.encode": ai_launches[name],
+                            "FrameParallelAI.encode": fp_launches[name]}
     say({"kernels": [{
         "name": "satd35", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/satd35.cu",
         "replaces": "hevc_tpu/ops/intra_mm.py:243",
         "replaces_function":
             "hevc_tpu/ops/intra_mm.py::_satd_all_modes_pallas",
-        "launches": launches, "max_abs_err": max_err, "equal_to_plain": True,
+        "launches": fp_launches["satd35"],
+        "launches_by_path": by_path("satd35"),
+        "max_abs_err": max_err, "equal_to_plain": True,
         "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
         "bound_ms": tot("bound_ms"),
         "bound_by": "operations" if ops_bound else "bytes",
-        "library_ms": None, "per_n": per_n}]})
+        "library_ms": None, "per_n": per_n}, {
+        "name": "recon_frame", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/recon_frame.cu",
+        "replaces": "hevc_tpu/pipeline/recon_pallas.py:443",
+        "replaces_function":
+            "hevc_tpu/pipeline/recon_pallas.py::_build_component_call",
+        "launches": fp_launches["recon_frame"],
+        "launches_by_path": by_path("recon_frame"),
+        "launches_per_frame_batch": RECON_LAUNCHES_1080P,
+        "max_abs_err": recon_err, "equal_to_plain": True,
+        "ms": k2["F1"]["ms"], "luma_ms": k2["F1"]["luma_ms"],
+        "chroma_ms": k2["F1"]["chroma_ms"], "plain_ms": plain_ms,
+        "bound_ms": k2["F1"]["bound_ms"], "bound_by": k2["F1"]["bound_by"],
+        "library_ms": None, "per_frame_batch": k2}]})
     print(nvidia_smi_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -23,12 +23,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import subprocess
 
 import numpy as np
 import torch
 
-from .. import BUILD_DIR
+from .. import BUILD_DIR, cuda_build
 from . import cost, intra
 
 
@@ -172,19 +171,14 @@ def satd_all_modes_plain(r_u, r_f, orig, n, *, component="luma",
 #: that wants to show the kernel was used zeroes it and reads it back)
 launches = 0
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     "csrc", "satd35.cu")
+_CSRC = os.path.join(cuda_build.CSRC_DIR, "satd35.cu")
 _SO = os.path.join(BUILD_DIR, "libsatd35.so")
 _lib = None
 
 
 def nvcc_command(src=_CSRC, out=_SO):
     """The command that builds the kernel's shared library."""
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out,
-            os.path.abspath(src)]
+    return cuda_build.nvcc_command(src, out)
 
 
 def load_kernel():
@@ -193,18 +187,7 @@ def load_kernel():
     global _lib
     if _lib is not None:
         return _lib
-    src = os.path.abspath(_CSRC)
-    if (not os.path.exists(_SO)
-            or os.path.getmtime(_SO) < os.path.getmtime(src)):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{_SO}.{os.getpid()}.tmp"
-        proc = subprocess.run(nvcc_command(src, tmp), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed building satd35.cu:\n"
-                               + proc.stdout + proc.stderr)
-        os.replace(tmp, _SO)
-    lib = ctypes.CDLL(_SO)
+    lib = ctypes.CDLL(cuda_build.build(_CSRC, _SO))
     lib.satd35_launch.restype = ctypes.c_int
     lib.satd35_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -63,18 +63,22 @@ def _ref_offsets_t(n: int, device):
             torch.as_tensor(dy, device=device)[None, :])
 
 
-def gather_refs(plane, origins, n: int):
+def gather_refs(plane, origins, n: int, frame=None):
     """Gather linear refs for B blocks.
 
-    plane: [H, W] integer tensor; origins: [B, 2] int64 (x0, y0) in plane
-    coords. Returns [B, 4n+1] int32 (clamped reads; pair with
+    plane: [H, W] integer tensor, or a frame batch [F, H, W] with `frame`
+    [B] int64 naming each block's frame; origins: [B, 2] int64 (x0, y0) in
+    plane coords. Returns [B, 4n+1] int32 (clamped reads; pair with
     availability()).
     """
-    h, w = plane.shape
+    h, w = plane.shape[-2:]
     dx, dy = _ref_offsets_t(n, plane.device)
     gx = torch.clamp(origins[:, 0:1] + dx, 0, w - 1)
     gy = torch.clamp(origins[:, 1:2] + dy, 0, h - 1)
-    return plane.reshape(-1)[gy * w + gx].to(torch.int32)
+    at = gy * w + gx
+    if frame is not None:
+        at = at + frame[:, None] * (h * w)
+    return plane.reshape(-1)[at].to(torch.int32)
 
 
 def availability(origins, n: int, pad_w: int, pad_h: int, n_ctu_x: int,
@@ -96,9 +100,10 @@ def availability(origins, n: int, pad_w: int, pad_h: int, n_ctu_x: int,
 
 
 def prepare_refs(plane, origins, n: int, pad_w: int, pad_h: int,
-                 n_ctu_x: int, scale: int = 1, bit_depth: int = 8):
+                 n_ctu_x: int, scale: int = 1, bit_depth: int = 8,
+                 frame=None):
     """gather + availability + substitution in one call -> [B, 4n+1]."""
     from . import intra
-    r = gather_refs(plane, origins, n)
+    r = gather_refs(plane, origins, n, frame)
     av = availability(origins, n, pad_w, pad_h, n_ctu_x, scale)
     return intra.substitute_refs(r, av, bit_depth)

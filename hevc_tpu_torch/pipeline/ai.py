@@ -1,8 +1,9 @@
 """All-Intra encoder pipeline: ETH-CNN HCPM -> search -> coding -> CABAC.
 
 The predictor, the partition search (with the 35-mode SATD kernel) and
-the normative wavefront reconstruction (pipeline/recon.py) run on the
-device as tensors; CABAC packs on the host (native C++ coder).
+the normative wavefront reconstruction (pipeline/recon.py: the
+reconstruction kernel on the card) run on the device as tensors; CABAC
+packs on the host (native C++ coder).
 """
 
 from __future__ import annotations
@@ -153,7 +154,9 @@ class AIEncoder:
 
     def reconstruct(self, pf, depth8, modes8, qp=None, modes4=None,
                     nxn8=None):
-        """Normative reconstruction + coefficients (device wavefront).
+        """Normative reconstruction + coefficients: a frame batch of one
+        through `recon.encode_frame_planes_batched` (the reconstruction
+        kernel on the card, the plain version on the CPU).
         modes4/nxn8: NxN decisions; None = all CUs 2Nx2N.
         Returns (decisions dict of host arrays, recon Frame)."""
         cfg = self.cfg
@@ -162,11 +165,12 @@ class AIEncoder:
             modes4 = np.repeat(np.repeat(modes8, 2, 0), 2, 1)
         if nxn8 is None:
             nxn8 = np.zeros_like(np.asarray(depth8), bool)
-        planes = recon.encode_frame_planes(
-            pf.y, pf.cb, pf.cr, depth8, modes4, nxn8,
+        planes = recon.encode_frame_planes_batched(
+            *(np.asarray(a)[None] for a in (pf.y, pf.cb, pf.cr, depth8,
+                                            modes4, nxn8)),
             qp=qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
             rdoq=cfg.rdoq, device=self.device)
-        host = [p.cpu().numpy() for p in planes]   # waits for the device
+        host = [p[0].cpu().numpy() for p in planes]   # waits for the device
         decisions = dict(depth8=depth8, modes8=modes8, modes4=modes4,
                          nxn8=nxn8, coef_y=host[3], coef_cb=host[4],
                          coef_cr=host[5])

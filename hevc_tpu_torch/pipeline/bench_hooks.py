@@ -1,10 +1,18 @@
-"""Synthetic benchmark content for the port's drives and smoke runs."""
+"""Benchmark entry point, synthetic content and work counts for the port's
+drives and smoke runs."""
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 
 from ..core.yuv import Frame
+
+#: the shipped ETH-CNN checkpoint of the QP 30..35 band
+WEIGHTS_QP32 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "..", "..", "models", "eth_cnn_qp30~35.npz")
 
 
 def synth_structured(n_frames=2, seed=7, width=1920, height=1080):
@@ -33,3 +41,117 @@ def synth_structured(n_frames=2, seed=7, width=1920, height=1080):
 
 def synth_1080p_structured(n_frames=2, seed=7):
     return synth_structured(n_frames, seed, 1920, 1080)
+
+
+def random_legal_decisions(pad_w, pad_h, seed):
+    """Seeded random but legal decisions for a coded frame of pad_w x
+    pad_h: (depth8, modes8, modes4, nxn8) host arrays with all four
+    depths (raised where a CU would cross the frame edge), all 35 modes,
+    and NxN 8x8 CUs with a mode per 4x4 PU. What the reconstruction is
+    held to on content the search would never pick."""
+    rng = np.random.RandomState(seed)
+    h8, w8 = pad_h // 8, pad_w // 8
+    H8, W8 = -(-h8 // 8) * 8, -(-w8 // 8) * 8
+    d8 = np.zeros((H8, W8), np.int32)
+    for i, (cy, cx) in enumerate(np.ndindex(H8 // 8, W8 // 8)):
+        if i % 3 == 1:
+            continue                      # one 64x64 CU (where it fits)
+        for (qy, qx) in np.ndindex(2, 2):   # per 32x32: depth 1, or 2/3 mix
+            y0, x0 = cy * 8 + qy * 4, cx * 8 + qx * 4
+            if rng.rand() < 0.3:
+                d8[y0:y0 + 4, x0:x0 + 4] = 1
+            else:
+                d8[y0:y0 + 4, x0:x0 + 4] = np.repeat(np.repeat(
+                    rng.randint(2, 4, (2, 2)), 2, 0), 2, 1)
+    # a CU must lie inside the frame: raise the depth until it does
+    for y in range(h8):
+        for x in range(w8):
+            while True:
+                s = 8 >> d8[y, x]
+                if (x // s + 1) * s <= w8 and (y // s + 1) * s <= h8:
+                    break
+                d8[y, x] += 1
+    d8 = d8[:h8, :w8]
+    m8 = np.zeros((h8, w8), np.int32)
+    for y in range(h8):
+        for x in range(w8):
+            s = 8 >> d8[y, x]
+            if x % s == 0 and y % s == 0:
+                m8[y:y + s, x:x + s] = rng.randint(0, 35)
+    m4 = np.repeat(np.repeat(m8, 2, 0), 2, 1)
+    nxn = (d8 == 3) & (rng.rand(h8, w8) < 0.35)
+    for y, x in zip(*np.nonzero(nxn)):
+        m4[2 * y:2 * y + 2, 2 * x:2 * x + 2] = rng.randint(0, 35, (2, 2))
+    return d8, m4[::2, ::2].copy(), m4, nxn
+
+
+def recon_work(depth8, nxn8, rdoq=True):
+    """(bytes, integer operations) the reconstruction of frames with
+    these decisions needs, for a roofline bound. depth8 / nxn8: host
+    arrays [F, pad_h/8, pad_w/8].
+
+    Bytes: per luma pixel 1.5 of original read, 1.5 of reconstruction and
+    3 of int16 levels written (4:2:0), plus the decisions (depth8 and nxn8
+    per 8x8, modes4 per 4x4). Operations per sample of a TU of size n:
+    about 6 for the prediction taps, 4n multiply-adds for the two forward
+    and two inverse transform stages, and about 55 for quantisation with
+    three RDOQ candidate costs and dequantisation (12 without RDOQ). The
+    TU sizes are those of these decisions: 32 under a 64 or 32 CU, else
+    the CU size, 4 under an NxN CU; chroma half of that, at least 4."""
+    depth8 = np.asarray(depth8)
+    nxn8 = np.asarray(nxn8, bool)
+    units = depth8.size
+    nbytes = units * 64 * 6.0 + units * (4 + 1 + 4 * 4)
+    n_luma = np.minimum(64 >> depth8, 32)
+    n_luma = np.where(nxn8, 4, n_luma)
+    n_chroma = np.maximum(np.minimum(64 >> depth8, 32) // 2, 4)
+    per_sample = 6 + (55 if rdoq else 12)
+    ops = float((64 * (per_sample + 4 * n_luma)).sum()
+                + (32 * (per_sample + 4 * n_chroma)).sum())
+    return nbytes, ops
+
+
+def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
+    """Full-pipeline All-Intra 1080p benchmark on the card; returns the
+    dictionary `bench_torch.py` prints.
+
+    Uses the frame-batched pipeline (`parallel/frames.FrameParallelAI`)
+    with the shipped ETH-CNN at QP 32 on structured synthetic content: the
+    reconstruction runs over `chunk` frames at once (its chain of
+    dependent launches costs about the same for 1 and for 24 frames),
+    the decide stage in sub-batches of `decide_chunk` inside each chunk.
+    One chunk is encoded first as a warm-up (kernel builds, host tables).
+    `vs_baseline` is null: no HM encode was timed on this machine."""
+    import torch
+
+    from ..entropy import headers
+    from ..models import eth_cnn
+    from ..ops import intra_mm
+    from ..parallel import frames as pframes
+    from . import recon, recon_kernel
+
+    cfg = headers.EncoderConfig(width=1920, height=1080, qp=32)
+    enc = pframes.FrameParallelAI(cfg, cnn=eth_cnn.load_npz(WEIGHTS_QP32),
+                                  decide_chunk=decide_chunk)
+    frames = synth_1080p_structured(n_frames)
+    enc.encode(frames[:chunk], with_hash_sei=False)      # warm-up (1 chunk)
+    torch.cuda.synchronize()
+
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+    t0 = time.perf_counter()
+    stream, stats = enc.encode(frames, with_hash_sei=False, chunk=chunk)
+    dt = time.perf_counter() - t0
+    return {
+        "metric": "ai_encode_1080p",
+        "value": n_frames / dt,
+        "unit": "frames/s/chip",
+        "vs_baseline": None,
+        "detail": {**stats, "n_frames": n_frames, "chunk": chunk,
+                   "decide_chunk": decide_chunk, "wall_s": dt,
+                   "satd35_launches": intra_mm.launches,
+                   "recon_frame_launches": recon_kernel.launches,
+                   "plain_recon_batches": recon.batches,
+                   "weights": "trained", "content": "structured",
+                   "device": torch.cuda.get_device_name(0)},
+        "stream_bytes": len(stream),
+    }

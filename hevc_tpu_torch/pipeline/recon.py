@@ -1,7 +1,14 @@
 """Wavefront reconstruction (phase B of the AI pipeline).
 
-Computes the normative reconstruction + quantized coefficients for a whole
-frame on the device. Intra prediction needs reconstructed neighbours, which
+`encode_frame_planes_batched` is the entry point: the normative
+reconstruction + quantized coefficients of a batch of frames. Tensors on a
+CUDA device go to the hand-written kernel (`pipeline/recon_kernel.py`,
+`csrc/recon_frame.cu`) or raise; tensors on the CPU go to the plain
+PyTorch version below, `encode_frame_planes_plain`, frame by frame. There
+is no fallback from the kernel to the plain version on the card.
+
+The plain version computes the normative reconstruction + quantized
+coefficients for a whole frame on the device of its inputs. Intra prediction needs reconstructed neighbours, which
 serializes CTUs along raster order — the formulation is the WPP-style
 wavefront: CTUs on the anti-diagonal d = ctu_x + 2*ctu_y are independent
 (left, above and above-right neighbours all lie on earlier diagonals), so
@@ -32,6 +39,8 @@ import torch
 
 from .. import resolve_device
 from ..ops import intra, quant, rdoq as rdoq_lib, refs, transforms
+from . import recon_kernel
+from .recon_kernel import node_table
 
 
 #: batches coded by `_code_tus` since import (plain integer; a run that
@@ -40,28 +49,12 @@ batches = 0
 
 
 class FramePlanes(NamedTuple):
-    recon_y: torch.Tensor     # [pad_h, pad_w] uint8
+    recon_y: torch.Tensor     # [pad_h, pad_w] uint8 (batched: leading F)
     recon_cb: torch.Tensor
     recon_cr: torch.Tensor
-    coef_y: torch.Tensor      # [pad_h, pad_w] int16
+    coef_y: torch.Tensor      # [pad_h, pad_w] int16 (batched: leading F)
     coef_cb: torch.Tensor
     coef_cr: torch.Tensor
-
-
-@functools.lru_cache(maxsize=None)
-def node_table():
-    """(depth_class, x0, y0) of the 85 quadtree nodes, DFS pre-order."""
-    nodes = []
-
-    def rec(d, x, y):
-        nodes.append((d, x, y))
-        if d < 3:
-            h = 64 >> (d + 1)
-            for (dx, dy) in ((0, 0), (h, 0), (0, h), (h, h)):
-                rec(d + 1, x + dx, y + dy)
-
-    rec(0, 0, 0)
-    return np.array(nodes, np.int32)
 
 
 def _levelled(tus, cells):
@@ -176,7 +169,7 @@ def code_ctu(state, lanes, depth8, modes4, nxn8, *, qp, cqp, pad_w, pad_h,
     """Code the CTUs `lanes` = [(ctu_x, ctu_y), ...] in place. The lanes
     must be mutually independent (one CTU, or one wavefront diagonal).
 
-    state: dict of the device planes made by `encode_frame_planes`
+    state: dict of the device planes made by `encode_frame_planes_plain`
     (rec_y/coef_y/orig_y [1, ..], rec_c/coef_c/orig_c [2, ..] = Cb, Cr).
     depth8 / modes4 / nxn8: host arrays, CTU-aligned (depth8 = -1 outside
     the coded frame)."""
@@ -240,10 +233,11 @@ def _diag_lanes(nx, ny):
                        if 0 <= d - 2 * cy < nx) for d in range(n_diag))
 
 
-def encode_frame_planes(orig_y, orig_cb, orig_cr, depth8, modes4, nxn8, *,
-                        qp: int, pad_w: int, pad_h: int, rdoq: bool = True,
-                        device=None) -> FramePlanes:
-    """Whole-frame normative reconstruction + coefficients.
+def encode_frame_planes_plain(orig_y, orig_cb, orig_cr, depth8, modes4,
+                              nxn8, *, qp: int, pad_w: int, pad_h: int,
+                              rdoq: bool = True, device=None) -> FramePlanes:
+    """Whole-frame normative reconstruction + coefficients, plain PyTorch:
+    the version the CPU runs, and the one the kernel is held equal to.
 
     orig_*: [pad_h, pad_w] (chroma half size) uint8/int arrays or tensors.
     depth8: [pad_h/8, pad_w/8] CU depths; modes4: [pad_h/4, pad_w/4]
@@ -310,3 +304,52 @@ def encode_frame_planes(orig_y, orig_cb, orig_cr, depth8, modes4, nxn8, *,
         coef_cb=cc[0, :hc, :wc].to(torch.int16),
         coef_cr=cc[1, :hc, :wc].to(torch.int16),
     )
+
+
+def encode_frame_planes_plain_batched(ys, cbs, crs, depth8, modes4, nxn8, *,
+                                      qp: int, pad_w: int, pad_h: int,
+                                      rdoq: bool = True,
+                                      device=None) -> FramePlanes:
+    """The plain version over a frame batch: `encode_frame_planes_plain`
+    frame after frame, stacked (leading F). The decisions go through the
+    host, where the plain version builds its schedule."""
+    per_frame = [encode_frame_planes_plain(
+        ys[f], cbs[f], crs[f], depth8[f], modes4[f], nxn8[f], qp=qp,
+        pad_w=pad_w, pad_h=pad_h, rdoq=rdoq, device=device)
+        for f in range(len(ys))]
+    return FramePlanes(*(torch.stack(p) for p in zip(*per_frame)))
+
+
+def encode_frame_planes_batched(ys, cbs, crs, depth8, modes4, nxn8, *,
+                                qp: int, pad_w: int, pad_h: int,
+                                rdoq: bool = True,
+                                device=None) -> FramePlanes:
+    """Reconstruction + coefficients of a batch of F frames.
+
+    ys [F, pad_h, pad_w], cbs / crs [F, pad_h/2, pad_w/2] samples; depth8
+    [F, pad_h/8, pad_w/8], modes4 [F, pad_h/4, pad_w/4], nxn8 [F, pad_h/8,
+    pad_w/8] decisions; arrays or tensors. Returns `FramePlanes` with a
+    leading F (recon uint8, levels int16).
+
+    device=None keeps tensors where they are (arrays go to the card);
+    otherwise everything is moved to `device` first. What then lies on a
+    CUDA device is coded by the kernel, decisions and all staying on the
+    device, or raises; what lies on the CPU is coded by the plain version,
+    one frame after the other. 8-bit 4:2:0 with the "lite" RDOQ model."""
+    if device is None and isinstance(ys, torch.Tensor):
+        device = ys.device
+    device = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    if torch.as_tensor(ys).dim() != 3:
+        raise ValueError("encode_frame_planes_batched takes [F, H, W] planes")
+    if device.type == "cuda":
+        return FramePlanes(*recon_kernel.encode_frame_planes_cuda(
+            t(ys, torch.uint8), t(cbs, torch.uint8), t(crs, torch.uint8),
+            t(depth8, torch.int32), t(modes4, torch.int32),
+            t(nxn8, torch.bool), qp=qp, pad_w=pad_w, pad_h=pad_h, rdoq=rdoq))
+    return encode_frame_planes_plain_batched(
+        ys, cbs, crs, depth8, modes4, nxn8, qp=qp, pad_w=pad_w, pad_h=pad_h,
+        rdoq=rdoq, device=device)

@@ -60,18 +60,29 @@ def _rep2(t, k):
     return t.repeat_interleave(k, -2).repeat_interleave(k, -1)
 
 
-def _gather_blocks(plane, origins, size):
+def _gather_blocks(plane, origins, size, frame=None):
     """[N, size, size] int32 blocks at `origins` [N, 2]; reads beyond the
-    plane are clipped to its edge."""
-    h, w = plane.shape
+    plane are clipped to its edge. plane: [H, W], or a frame batch
+    [F, H, W] with `frame` [N] int64 naming each block's frame."""
+    h, w = plane.shape[-2:]
     ar = torch.arange(size, device=plane.device)
     ys = torch.clamp(origins[:, 1:2, None] + ar[None, :, None], 0, h - 1)
     xs = torch.clamp(origins[:, 0:1, None] + ar[None, None, :], 0, w - 1)
-    return plane.reshape(-1)[ys * w + xs].to(torch.int32)
+    at = ys * w + xs
+    if frame is not None:
+        at = at + frame[:, None, None] * (h * w)
+    return plane.reshape(-1)[at].to(torch.int32)
 
 
-def _best_mode_per_node(y_plane, ctu_origins, depth, pad_w, pad_h, n_ctu_x):
-    """For all CTUs x all nodes at `depth`: best mode + SATD.
+def _per_block(frame, k):
+    """Frame index of each of the k blocks made from every CTU."""
+    return None if frame is None else frame.repeat_interleave(k)
+
+
+def _best_mode_per_node(y_plane, ctu_origins, depth, pad_w, pad_h, n_ctu_x,
+                        frame=None):
+    """For all CTUs x all nodes at `depth`: best mode + SATD. `frame`
+    [B]: the frame of each CTU when y_plane is a batch [F, H, W].
 
     Returns (best_mode [B, nd], best_satd [B, nd]) with nd = 4^depth.
     """
@@ -80,10 +91,12 @@ def _best_mode_per_node(y_plane, ctu_origins, depth, pad_w, pad_h, n_ctu_x):
     off = _node_offsets_t(depth, y_plane.device)
     nd = off.shape[0]
     origins = (ctu_origins[:, None, :] + off[None]).reshape(B * nd, 2)
+    frame = _per_block(frame, nd)
 
-    r = refs.prepare_refs(y_plane, origins, size, pad_w, pad_h, n_ctu_x)
+    r = refs.prepare_refs(y_plane, origins, size, pad_w, pad_h, n_ctu_x,
+                          frame=frame)
     rf = intra.filter_refs(r)
-    orig = _gather_blocks(y_plane, origins, size)
+    orig = _gather_blocks(y_plane, origins, size, frame)
 
     if size <= 16:
         # weight-table formulation (the CUDA kernel on the card),
@@ -128,7 +141,7 @@ def _leaf_cost(pred, orig, qp, lam, dist_w, is_luma, use_dst=False):
 
 
 def _refined_costs(y_plane, ctu_origins, depth, modes, qp, lam, *,
-                   pad_w, pad_h, n_ctu_x, use_dst=False):
+                   pad_w, pad_h, n_ctu_x, use_dst=False, frame=None):
     """RD cost of each node coded as a leaf with its chosen mode:
     SSE(reconstruction) + lambda * estimated bits (HM J = D + lambda*R,
     TComRdCost::calcRdCost behavioral equivalent on original-pixel refs).
@@ -148,17 +161,20 @@ def _refined_costs(y_plane, ctu_origins, depth, modes, qp, lam, *,
     origins = _tu_origins(ctu_origins, depth, tu_off)
     modes_t = modes.reshape(B, nd, 1).expand(B, nd, n_tu).reshape(-1)
 
-    r = refs.prepare_refs(y_plane, origins, tu, pad_w, pad_h, n_ctu_x)
+    frame = _per_block(frame, nd * n_tu)
+
+    r = refs.prepare_refs(y_plane, origins, tu, pad_w, pad_h, n_ctu_x,
+                          frame=frame)
     rf = intra.filter_refs(r)
     r_use = intra.select_filtered_batch(r, rf, modes_t, tu)
     pred = intra.predict_selected_modes(r_use, modes_t, tu)
-    orig = _gather_blocks(y_plane, origins, tu)
+    orig = _gather_blocks(y_plane, origins, tu, frame)
     c = _leaf_cost(pred, orig, qp, lam, None, True, use_dst)
     return c.reshape(B, nd, n_tu).sum(-1)
 
 
 def _refined_chroma_costs(c_plane, ctu_origins, depth, modes, cqp, lam,
-                          dist_w, *, pad_w, pad_h, n_ctu_x):
+                          dist_w, *, pad_w, pad_h, n_ctu_x, frame=None):
     """Chroma-component leaf RD contribution per node: weighted SSE +
     lambda * bits of the DM-mode (= luma mode) chroma TB(s). Mirrors the
     reconstruction tiling (pipeline/recon.code_ctu): one TB of size
@@ -180,10 +196,12 @@ def _refined_chroma_costs(c_plane, ctu_origins, depth, modes, cqp, lam,
     origins = _tu_origins(ctu_origins, depth, tu_off, div=2)
     modes_t = modes.reshape(B, nd, 1).expand(B, nd, n_tu).reshape(-1)
 
+    frame = _per_block(frame, nd * n_tu)
+
     r = refs.prepare_refs(c_plane, origins, tu, pad_wc, pad_hc, n_ctu_x,
-                          scale=2)
+                          scale=2, frame=frame)
     pred = intra.predict_selected_modes(r, modes_t, tu, component="chroma")
-    orig = _gather_blocks(c_plane, origins, tu)
+    orig = _gather_blocks(c_plane, origins, tu, frame)
     c = _leaf_cost(pred, orig, cqp, lam, dist_w, False)
     return c.reshape(B, nd, n_tu).sum(-1)
 
@@ -275,11 +293,17 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
                  thr_up=(1.1, 1.1, 1.1), thr_down=(-0.1, -0.1, -0.1),
                  rd_refine: bool = True, cb_plane=None, cr_plane=None,
                  nxn: bool = True, max_depth: int = 3):
-    """Run the partition/mode search for all CTUs of one frame.
+    """Run the partition/mode search for all CTUs of one frame, or of a
+    batch of frames.
 
     y_plane: [pad_h, pad_w] luma tensor (uint8/int32); its device is the
-      device of the whole search.
-    ctu_origins: [B, 2] int64 (x, y) top-left of each CTU.
+      device of the whole search. A batch [F, pad_h, pad_w] (chroma planes
+      [F, pad_h//2, pad_w//2], hcpm_probs [F, B, 21]) folds (frame, CTU)
+      into the one leading batch the search carries anyway: the frames'
+      CTUs are searched together, the 35-mode SATD kernel is launched once
+      per node size for all of them, and every field of the result gets a
+      leading F.
+    ctu_origins: [B, 2] int64 (x, y) top-left of each CTU of a frame.
     hcpm_probs: [B, 21] ETH-CNN outputs, or None (no gating: thresholds
       default to always-check-both, i.e. pure search).
     cb_plane/cr_plane: optional [pad_h//2, pad_w//2] chroma; when given
@@ -291,6 +315,15 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
       out (AIEncoder.max_depth_exit). Clamped up to the forced-split floor.
     Returns SearchResult.
     """
+    n_frames = None
+    frame = None
+    if y_plane.dim() == 3:
+        n_frames, per_frame = y_plane.shape[0], ctu_origins.shape[0]
+        frame = torch.arange(n_frames, device=y_plane.device
+                             ).repeat_interleave(per_frame)
+        ctu_origins = ctu_origins.repeat(n_frames, 1)
+        if hcpm_probs is not None:
+            hcpm_probs = hcpm_probs.reshape(n_frames * per_frame, 21)
     B = ctu_origins.shape[0]
     dev = y_plane.device
     f32 = torch.float32
@@ -313,7 +346,7 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
             satds[d] = torch.full((B, 4 ** d), INF, dtype=f32, device=dev)
             continue
         m, s = _best_mode_per_node(y_plane, ctu_origins, d, pad_w, pad_h,
-                                   n_ctu_x)
+                                   n_ctu_x, frame)
         modes[d] = m
         satds[d] = s.to(f32)
 
@@ -325,7 +358,7 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
         ovh = lam_times(9.5)
         costs = {d: (_refined_costs(y_plane, ctu_origins, d, modes[d], qp,
                                     lam, pad_w=pad_w, pad_h=pad_h,
-                                    n_ctu_x=n_ctu_x) + ovh
+                                    n_ctu_x=n_ctu_x, frame=frame) + ovh
                      if d <= max_depth else satds[d])
                  for d in range(4)}
         chroma_cost = None
@@ -338,7 +371,8 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
                 for cp in (cb_plane, cr_plane):
                     out = out + _refined_chroma_costs(
                         cp, ctu_origins, d, m, cqp, lam, dist_w,
-                        pad_w=pad_w, pad_h=pad_h, n_ctu_x=n_ctu_x)
+                        pad_w=pad_w, pad_h=pad_h, n_ctu_x=n_ctu_x,
+                        frame=frame)
                 return out
 
             for d in range(max_depth + 1):
@@ -347,11 +381,12 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
             # NxN candidate at depth 3: four 4x4 PUs/TUs (DST), competing
             # against 2Nx2N per 8x8 CU (HM xCheckRDCostIntra SIZE_NxN).
             m4, _ = _best_mode_per_node(y_plane, ctu_origins, 4, pad_w,
-                                        pad_h, n_ctu_x)
+                                        pad_h, n_ctu_x, frame)
             modes4_nxn = m4
             cost4 = _refined_costs(y_plane, ctu_origins, 4, m4, qp, lam,
                                    pad_w=pad_w, pad_h=pad_h,
-                                   n_ctu_x=n_ctu_x, use_dst=True)
+                                   n_ctu_x=n_ctu_x, use_dst=True,
+                                   frame=frame)
             # pool the 16x16 grid of 4x4 leaves into 8x8-CU sums
             c4 = cost4.reshape(B, 8, 2, 8, 2).sum((2, 4)).reshape(B, 64)
             # overhead: part bit + 3 extra intra dirs + extra cbf coding
@@ -397,9 +432,13 @@ def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
         # keep modes8 = the PU0 mode (chroma DM + neighbour derivation)
         modes8 = modes4[:, ::2, ::2]
 
-    return SearchResult(depth8=depth8, modes8=modes8, split0=split0,
-                        split1=split1, split2=split2, modes4=modes4,
-                        nxn8=nxn8)
+    res = SearchResult(depth8=depth8, modes8=modes8, split0=split0,
+                       split1=split1, split2=split2, modes4=modes4,
+                       nxn8=nxn8)
+    if n_frames is not None:
+        res = SearchResult(*(t.reshape(n_frames, -1, *t.shape[1:])
+                             for t in res))
+    return res
 
 
 def ctu_grid(pad_w: int, pad_h: int, ctu: int = 64):

@@ -1,4 +1,4 @@
-"""PyTorch port, wavefront reconstruction: `encode_frame_planes` (CPU
+"""PyTorch port, wavefront reconstruction: `encode_frame_planes_plain` (CPU
 tensors) against the sequential NumPy golden encoder on seeded decisions
 with mixed depths, forced boundary splits and NxN CUs. All six planes
 (three reconstructions, three coefficient planes) must be equal."""
@@ -10,49 +10,21 @@ import torch
 from hevc_tpu.core.yuv import pad_frame
 from hevc_tpu.entropy import headers as j_headers
 from hevc_tpu.pipeline import golden, recon as j_recon
-from hevc_tpu_torch.pipeline import recon as t_recon
+from hevc_tpu_torch.pipeline import bench_hooks, recon as t_recon
 
 from tests.test_e2e_bitstream import legalize_depth, synth_frame
 
 
 def _decisions(pad_w, pad_h, seed):
     """Legal depth map (incl. the depth floor forced where a CTU crosses
-    the frame edge), per-CU modes, NxN flags with per-PU modes."""
-    rng = np.random.RandomState(seed)
-    h8, w8 = pad_h // 8, pad_w // 8
-    H8, W8 = -(-h8 // 8) * 8, -(-w8 // 8) * 8
-    d8 = np.zeros((H8, W8), np.int32)
-    for i, (cy, cx) in enumerate(np.ndindex(H8 // 8, W8 // 8)):
-        if i % 3 == 1:
-            continue                      # one 64x64 CU (where it fits)
-        for (qy, qx) in np.ndindex(2, 2):   # per 32x32: depth 1, or 2/3 mix
-            y0, x0 = cy * 8 + qy * 4, cx * 8 + qx * 4
-            if rng.rand() < 0.3:
-                d8[y0:y0 + 4, x0:x0 + 4] = 1
-            else:
-                d8[y0:y0 + 4, x0:x0 + 4] = np.repeat(np.repeat(
-                    rng.randint(2, 4, (2, 2)), 2, 0), 2, 1)
-    # a CU must lie inside the frame: raise the depth until it does
-    for y in range(h8):
-        for x in range(w8):
-            while True:
-                s = 8 >> d8[y, x]
-                if (x // s + 1) * s <= w8 and (y // s + 1) * s <= h8:
-                    break
-                d8[y, x] += 1
-    np.testing.assert_array_equal(legalize_depth(d8)[:h8, :w8], d8[:h8, :w8])
-    d8 = d8[:h8, :w8]
-    m8 = np.zeros((h8, w8), np.int32)
-    for y in range(h8):
-        for x in range(w8):
-            s = 8 >> d8[y, x]
-            if x % s == 0 and y % s == 0:
-                m8[y:y + s, x:x + s] = rng.randint(0, 35)
-    m4 = np.repeat(np.repeat(m8, 2, 0), 2, 1)
-    nxn = (d8 == 3) & (rng.rand(h8, w8) < 0.35)
-    for y, x in zip(*np.nonzero(nxn)):
-        m4[2 * y:2 * y + 2, 2 * x:2 * x + 2] = rng.randint(0, 35, (2, 2))
-    return d8, m4[::2, ::2].copy(), m4, nxn
+    the frame edge), per-CU modes, NxN flags with per-PU modes: the
+    port's generator, held legal by the reference's `legalize_depth`."""
+    d8, m8, m4, nxn = bench_hooks.random_legal_decisions(pad_w, pad_h, seed)
+    h8, w8 = d8.shape
+    full = np.zeros((-(-h8 // 8) * 8, -(-w8 // 8) * 8), np.int32)
+    full[:h8, :w8] = d8
+    np.testing.assert_array_equal(legalize_depth(full)[:h8, :w8], d8)
+    return d8, m8, m4, nxn
 
 
 @pytest.mark.parametrize("rdoq", [True, False])
@@ -65,7 +37,7 @@ def test_encode_frame_planes_equals_golden(w, h, qp, rdoq):
     d8, m8, m4, nxn = _decisions(cfg.pad_width, cfg.pad_height, seed=h + qp)
     assert nxn.any() and len(np.unique(d8)) >= 3, np.unique(d8)
     t_recon.batches = 0
-    planes = t_recon.encode_frame_planes(
+    planes = t_recon.encode_frame_planes_plain(
         pf.y, pf.cb, pf.cr, d8, m4, nxn, qp=qp, pad_w=cfg.pad_width,
         pad_h=cfg.pad_height, rdoq=rdoq, device="cpu")
     assert t_recon.batches > 0

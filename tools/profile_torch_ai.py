@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch/CUDA port's All-Intra encoder goes.
+"""Where the time of the PyTorch/CUDA port's All-Intra encoders goes.
 
-    python3 tools/profile_torch_ai.py [--frames 2] [--out FILE.json]
+    python3 tools/profile_torch_ai.py [--frames 2] [--bench-frames 48]
+                                      [--out FILE.json]
 
-Runs on one CUDA device (no CPU fallback). Encodes `--frames` synthetic
-1080p frames one at a time through `hevc_tpu_torch` `AIEncoder.encode`
-(QP 32, shipped ETH-CNN) and prints per frame `decide_s / recon_s /
-entropy_s`, the SATD kernel's launches and the reconstruction's batch
-count; then traces the reconstruction of one 416x240 frame and of the
-decide stage of one 1080p frame with `torch.profiler` and prints the
-number of device kernels, the device-busy time, the idle share of the
-wall time and the ten kernels with the most device time. Everything is
-printed as JSON lines and, with `--out`, also written to that file.
+Runs on one CUDA device (no CPU fallback), with the shipped ETH-CNN at
+QP 32 on synthetic 1080p frames, and prints JSON lines (with `--out` also
+one JSON file):
+
+- `frames`: `--frames` frames one at a time through `AIEncoder.encode`:
+  `decide_s / recon_s / entropy_s`, the kernels' launches;
+- `recon_frame_tu_step_us`: the time of one TU step of the reconstruction
+  kernel by TU size, from a 64x1024 frame (16 CTUs that depend on each
+  other, so 16 launches of one block) of uniform depth: total time over
+  16 x TUs per CTU, the launch and the CTU's set-up included;
+- `recon_frame_1080p`: the kernel at frame batches of 1, 8 and 24 on the
+  encoder's own decisions (luma launches, chroma launches, both), its
+  roofline bound from this run's decisions, and the dependency floor of
+  the wavefront schedule: over the 62 diagonals, the slowest CTU's chain
+  of TU steps at the step times measured above;
+- `decide_1080p_trace`, `frames_batch8_trace`: the decide stage of one
+  frame, and `FrameParallelAI.encode_batch` of 8 frames, under
+  `torch.profiler`: device kernels, device-busy time, idle share of the
+  untraced wall time, the ten kernels with the most device time;
+- `bench_encode_1080p`: `bench_hooks.bench_encode_1080p` at
+  `--bench-frames` frames, chunk 24, decide_chunk 4.
 """
 
 import argparse
@@ -21,10 +34,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
+
+PEAK_BYTES_S = 3.35e12          # H100 SXM device memory
+PEAK_INT_OPS_S = 33.5e12        # int32 instructions outside the tensor cores
 
 
 def trace(fn):
@@ -62,9 +79,83 @@ def trace(fn):
                     for k, c, s in rows[:10]]}
 
 
+def time_ms(fn, reps=5):
+    """Mean milliseconds of fn() (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def tu_step_times(device):
+    """Microseconds per TU step of the reconstruction kernel, by
+    component group and TU size (see the module note)."""
+    from hevc_tpu_torch.pipeline import recon_kernel
+    w, h, ctus = 64, 1024, 16
+    rng = np.random.RandomState(3)
+    t = lambda a: torch.as_tensor(a).to(device)
+    ys = t(rng.randint(0, 256, (1, h, w)).astype(np.uint8))
+    cbs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
+    crs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
+    m4 = t(rng.randint(0, 35, (1, h // 4, w // 4)).astype(np.int32))
+    out = {"luma": {}, "chroma": {}}
+    # (depth, NxN) -> luma TU size, chroma TU size, TUs per CTU and plane
+    for depth, nxn, n_y, n_c, tus_y, tus_c in (
+            (1, False, 32, 16, 4, 4), (2, False, 16, 8, 16, 16),
+            (3, False, 8, 4, 64, 64), (3, True, 4, None, 256, None)):
+        d8 = torch.full((1, h // 8, w // 8), depth, dtype=torch.int32,
+                        device=device)
+        nx = torch.full((1, h // 8, w // 8), nxn, dtype=torch.bool,
+                        device=device)
+        for comp, n, tus in (("luma", n_y, tus_y), ("chroma", n_c, tus_c)):
+            if n is None:
+                continue
+            ms = time_ms(lambda: recon_kernel.encode_frame_planes_cuda(
+                ys, cbs, crs, d8, m4, nx, qp=32, pad_w=w, pad_h=h,
+                components=(comp,)), reps=10)
+            out[comp][str(n)] = ms * 1e3 / (ctus * tus)
+    return out
+
+
+def dependency_floor_ms(depth8, nxn8, tu_us):
+    """The wavefront schedule's floor for one frame: for every diagonal
+    d = x + 2y the slowest CTU's chain of TU steps, summed over the
+    diagonals, luma launches then chroma launches."""
+    h8, w8 = depth8.shape
+    ny, nx = -(-h8 // 8), -(-w8 // 8)
+    d = np.full((ny * 8, nx * 8), -1, np.int64)
+    d[:h8, :w8] = depth8
+    q = np.zeros((ny * 8, nx * 8), bool)
+    q[:h8, :w8] = nxn8
+    per_ctu = lambda m: m.reshape(ny, 8, nx, 8).sum((1, 3))
+    shallow = per_ctu((d == 0) | (d == 1)) / 16
+    mid = per_ctu(d == 2) / 4
+    deep, deep_nxn = per_ctu((d == 3) & ~q), per_ctu((d == 3) & q)
+    luma = (shallow * tu_us["luma"]["32"] + mid * tu_us["luma"]["16"]
+            + deep * tu_us["luma"]["8"] + 4 * deep_nxn * tu_us["luma"]["4"])
+    chroma = (shallow * tu_us["chroma"]["16"] + mid * tu_us["chroma"]["8"]
+              + (deep + deep_nxn) * tu_us["chroma"]["4"])
+    cy, cx = np.mgrid[0:ny, 0:nx]
+    diag = cx + 2 * cy
+    floor = lambda c: sum(c[diag == k].max() for k in range(nx + 2 * (ny - 1)))
+    return {"luma_ms": floor(luma) / 1e3, "chroma_ms": floor(chroma) / 1e3,
+            "ms": (floor(luma) + floor(chroma)) / 1e3,
+            "chain_tu_steps_luma": float(floor(shallow + mid + deep
+                                               + 4 * deep_nxn)),
+            "chain_tu_steps_chroma": float(floor(shallow + mid + deep
+                                                 + deep_nxn))}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--bench-frames", type=int, default=48)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -74,49 +165,76 @@ def main():
     from hevc_tpu_torch.entropy.headers import EncoderConfig
     from hevc_tpu_torch.models import eth_cnn
     from hevc_tpu_torch.ops import intra_mm
-    from hevc_tpu_torch.pipeline import bench_hooks, recon
+    from hevc_tpu_torch.parallel.frames import FrameParallelAI
+    from hevc_tpu_torch.pipeline import bench_hooks, recon, recon_kernel
     from hevc_tpu_torch.pipeline.ai import AIEncoder
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    device = torch.device("cuda")
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(),
         "torch": torch.__version__, "frames": []}
+
+    def say(key, value):
+        out[key] = value
+        print(json.dumps({key: value}), flush=True)
+
     print(json.dumps({"card": out["card"]}), flush=True)
-    cnn = eth_cnn.load_npz(os.path.join(root, "models", "eth_cnn_qp30~35.npz"))
-    frames = bench_hooks.synth_1080p_structured(n_frames=args.frames)
-    enc = AIEncoder(EncoderConfig(1920, 1080, qp=32), cnn=cnn)
-    for i, f in enumerate(frames):
-        intra_mm.launches = 0
-        recon.batches = 0
+    cnn = eth_cnn.load_npz(bench_hooks.WEIGHTS_QP32)
+    frames = bench_hooks.synth_1080p_structured(n_frames=24)
+    cfg = EncoderConfig(1920, 1080, qp=32)
+    enc = AIEncoder(cfg, cnn=cnn)
+    for i, f in enumerate(frames[:args.frames]):
+        intra_mm.launches = recon_kernel.launches = recon.batches = 0
         t0 = time.perf_counter()
         stream, _, stats = enc.encode([f])
         rec = {"frame": i, "wall_s": time.perf_counter() - t0,
                "bytes": len(stream), "satd35_launches": intra_mm.launches,
-               "recon_batches": recon.batches, **stats}
+               "recon_frame_launches": recon_kernel.launches,
+               "plain_recon_batches": recon.batches, **stats}
         out["frames"].append(rec)
         print(json.dumps(rec), flush=True)
 
-    # decide stage of one 1080p frame (warm), traced
-    cfg = enc.cfg
-    pf = pad_frame(frames[0], cfg.pad_width, cfg.pad_height)
-    out["decide_1080p_trace"] = trace(
-        lambda: enc.decide_frame_full(pf.y, None, pf.cb, pf.cr))
-    print(json.dumps({"decide_1080p_trace": out["decide_1080p_trace"]}),
-          flush=True)
+    # the reconstruction kernel: TU step times, batches of 1 / 8 / 24
+    tu_us = tu_step_times(device)
+    say("recon_frame_tu_step_us", tu_us)
+    pfs = [pad_frame(f, cfg.pad_width, cfg.pad_height) for f in frames]
+    dec = [enc.decide_frame_full(p.y, None, p.cb, p.cr) for p in pfs]
+    stack = lambda xs: torch.as_tensor(np.stack(xs)).to(device)
+    full = (stack([p.y for p in pfs]), stack([p.cb for p in pfs]),
+            stack([p.cr for p in pfs]), stack([d[0] for d in dec]),
+            stack([d[2] for d in dec]), stack([d[3] for d in dec]))
+    k2 = {"dependency_floor_frame0": dependency_floor_ms(dec[0][0], dec[0][3],
+                                                         tu_us)}
+    for F in (1, 8, 24):
+        a = tuple(t[:F].contiguous() for t in full)
+        r = {}
+        for key, comps in (("luma_ms", ("luma",)), ("chroma_ms", ("chroma",)),
+                           ("ms", ("luma", "chroma"))):
+            r[key] = time_ms(lambda: recon_kernel.encode_frame_planes_cuda(
+                *a, qp=32, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
+                components=comps))
+        nbytes, ops = bench_hooks.recon_work(a[3].cpu().numpy(),
+                                             a[5].cpu().numpy())
+        r.update(ms_per_frame=r["ms"] / F,
+                 bound_bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+                 bound_operations_ms=ops / PEAK_INT_OPS_S * 1e3)
+        k2[f"F{F}"] = r
+    say("recon_frame_1080p", k2)
 
-    # reconstruction of one 416x240 frame, traced
-    small = bench_hooks.synth_structured(1, 7, 416, 240)[0]
-    senc = AIEncoder(EncoderConfig(416, 240, qp=32), cnn=cnn)
-    spf = pad_frame(small, senc.cfg.pad_width, senc.cfg.pad_height)
-    d8, m8, m4, nxn = senc.decide_frame_full(spf.y, None, spf.cb, spf.cr)
-    recon.batches = 0
-    senc.reconstruct(spf, d8, m8, modes4=m4, nxn8=nxn)          # warm
-    batches = recon.batches
-    tr = trace(lambda: senc.reconstruct(spf, d8, m8, modes4=m4, nxn8=nxn))
-    out["recon_416x240_trace"] = {"recon_batches": batches, **tr}
-    print(json.dumps({"recon_416x240_trace": out["recon_416x240_trace"]}),
-          flush=True)
+    # decide stage of one 1080p frame (warm), traced
+    say("decide_1080p_trace", trace(
+        lambda: enc.decide_frame_full(pfs[0].y, None, pfs[0].cb, pfs[0].cr)))
+
+    # one 8-frame batch of the frame-batched encoder, traced
+    penc = FrameParallelAI(cfg, cnn=cnn, decide_chunk=4)
+    penc.encode_batch(frames[:8])                                   # warm
+    tr = trace(lambda: penc.encode_batch(frames[:8]))
+    say("frames_batch8_trace", {**tr, "last_stats": penc.last_stats,
+                                "decide_batches": penc.decide_batches})
+
+    say("bench_encode_1080p", bench_hooks.bench_encode_1080p(
+        n_frames=args.bench_frames, chunk=24, decide_chunk=4))
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
