@@ -40,8 +40,8 @@ PEAK_INT_OPS_S = 33.5e12
 CTUS_X_1080P, CTUS_Y_1080P = 30, 17
 N_CTU_1080P = CTUS_X_1080P * CTUS_Y_1080P
 #: K2's launches per frame batch: one per wavefront diagonal
-#: d = ctu_x + 2 * ctu_y, for luma and again for chroma
-RECON_LAUNCHES_1080P = 2 * (CTUS_X_1080P + 2 * (CTUS_Y_1080P - 1))
+#: d = ctu_x + 2 * ctu_y, each covering Y, Cb and Cr
+RECON_LAUNCHES_1080P = CTUS_X_1080P + 2 * (CTUS_Y_1080P - 1)
 #: K1's three launches per 1080p frame: n -> batch of nodes
 SHAPES_1080P = {16: N_CTU_1080P * 16, 8: N_CTU_1080P * 64,
                 4: N_CTU_1080P * 256}
@@ -173,7 +173,7 @@ def check_recon_small(device):
                                                            device=device)
             bad, err = planes_equal(got, want)
             max_err = max(max_err, err)
-            if bad or launches != 2 * (7 + 2 * 3):
+            if bad or launches != 7 + 2 * 3:
                 fail(f"recon_frame 416x240 qp={qp} rdoq={rdoq}: planes {bad} "
                      f"differ from the plain version (max abs err {err}), "
                      f"{launches} launches")
@@ -185,8 +185,8 @@ def check_recon_small(device):
 
 
 def recon_kernel_times(args, kw, reps=5):
-    """Milliseconds of K2 for one frame batch: luma launches, chroma
-    launches, and both as the encoder issues them."""
+    """Milliseconds of K2 for one frame batch: the luma plane alone, the
+    chroma planes alone, and all three as the encoder launches them."""
     from hevc_tpu_torch.pipeline import recon_kernel
     out = {}
     for key, comps in (("luma_ms", ("luma",)), ("chroma_ms", ("chroma",)),
@@ -347,6 +347,10 @@ def main():
          "planes_equal": 6, "tolerance": 0, "plain_ms": plain_ms,
          "plain_batches": recon.batches, **{f"kernel_{k}": v
                                             for k, v in k2.items()}})
+    # K2's time per TU step by component and TU size (uniform depth, 16
+    # dependent CTUs; launch and CTU set-up included)
+    tu_us = bench_hooks.recon_tu_step_us(device)
+    say({"phase": "recon_tu_step_us", **tu_us})
 
     # 6. second main path: the same eight frames through the frame-batched
     # FrameParallelAI.encode, groups of 4, decide sub-batches of 2
@@ -383,7 +387,7 @@ def main():
          "satd35_launches": fp_launches["satd35"],
          "recon_frame_launches": fp_launches["recon_frame"],
          "recon_frame_launches_formula":
-             "groups * 2 * (ctus_x + 2 * (ctus_y - 1)) = 2 * 2 * 62",
+             "groups * (ctus_x + 2 * (ctus_y - 1)) = 2 * 62",
          "plain_recon_batches": recon.batches, **pstats})
 
     # 7. the benchmark at a reduced depth (bench_torch.py runs 48 / 24 / 4)
@@ -459,7 +463,7 @@ def main():
         "ms": k2["F1"]["ms"], "luma_ms": k2["F1"]["luma_ms"],
         "chroma_ms": k2["F1"]["chroma_ms"], "plain_ms": plain_ms,
         "bound_ms": k2["F1"]["bound_ms"], "bound_by": k2["F1"]["bound_by"],
-        "library_ms": None, "per_frame_batch": k2}]})
+        "library_ms": None, "tu_step_us": tu_us, "per_frame_batch": k2}]})
     print(nvidia_smi_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -111,6 +111,55 @@ def recon_work(depth8, nxn8, rdoq=True):
     return nbytes, ops
 
 
+def recon_tu_step_us(device, reps=10, lib=None):
+    """Microseconds per TU step of the reconstruction kernel on the card,
+    by component ("luma", "chroma") and TU size ("32" ... "4").
+
+    A 64x1024 frame is 16 CTUs that depend on each other (16 launches of
+    one block); with one depth (and NxN flag) everywhere each CTU codes one
+    TU size. The time of the kernel on one component (CUDA events, `reps`
+    frame batches after a warm-up) over 16 x TUs per CTU: the launch and
+    the CTU's set-up included. `lib`: another build of the kernel
+    (`recon_kernel.load_library`); default the package's own."""
+    import torch
+
+    from . import recon_kernel
+
+    w, h, ctus = 64, 1024, 16
+    rng = np.random.RandomState(3)
+    t = lambda a: torch.as_tensor(a).to(device)
+    ys = t(rng.randint(0, 256, (1, h, w)).astype(np.uint8))
+    cbs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
+    crs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
+    m4 = t(rng.randint(0, 35, (1, h // 4, w // 4)).astype(np.int32))
+    out = {"luma": {}, "chroma": {}}
+    # (depth, NxN) -> luma TU size, chroma TU size, TUs per CTU and plane
+    for depth, nxn, n_y, n_c, tus_y, tus_c in (
+            (1, False, 32, 16, 4, 4), (2, False, 16, 8, 16, 16),
+            (3, False, 8, 4, 64, 64), (3, True, 4, None, 256, None)):
+        d8 = torch.full((1, h // 8, w // 8), depth, dtype=torch.int32,
+                        device=device)
+        nx = torch.full((1, h // 8, w // 8), nxn, dtype=torch.bool,
+                        device=device)
+        for comp, n, tus in (("luma", n_y, tus_y), ("chroma", n_c, tus_c)):
+            if n is None:
+                continue
+            run = lambda: recon_kernel.encode_frame_planes_cuda(
+                ys, cbs, crs, d8, m4, nx, qp=32, pad_w=w, pad_h=h,
+                components=(comp,), lib=lib)
+            run()
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                run()
+            t1.record()
+            torch.cuda.synchronize()
+            out[comp][str(n)] = t0.elapsed_time(t1) / reps * 1e3 / (ctus * tus)
+    return out
+
+
 def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
     """Full-pipeline All-Intra 1080p benchmark on the card; returns the
     dictionary `bench_torch.py` prints.

@@ -4,11 +4,12 @@
 decisions (depth8 / modes4 / nxn8), the normative intra reconstruction and
 the quantized coefficients of every transform unit in coding order. The
 intra dependency is carried by the launches: one launch per wavefront
-diagonal d = ctu_x + 2 * ctu_y and component group (luma; Cb with Cr), one
-thread block per (CTU of the diagonal, frame, plane). A block walks the
-static step table below in coding order, skips the rows that are not
-leaves of its CTU's quadtree and codes each leaf TU from references to
-write-back in shared memory (see the note at the top of the source).
+diagonal d = ctu_x + 2 * ctu_y covers the three planes Y, Cb and Cr, one
+thread block per (CTU of the diagonal, frame, plane). A block picks the
+rows of the static step table below that are leaves of its CTU's
+quadtree, keeps them in coding order, and codes each leaf TU from
+references to write-back in shared memory, in a body compiled once per TU
+size (see the note at the top of the source).
 
 This module holds what the kernel needs from the host: the step tables,
 the transform matrices, the float32 RDOQ constants, the `nvcc` build, the
@@ -34,9 +35,12 @@ from ..ops import quant, rdoq as rdoq_lib, transforms
 
 #: kernel launches by `encode_frame_planes_cuda` (plain integer; a run that
 #: wants to show the kernel was used zeroes it and reads it back). One
-#: frame batch adds 2 * (ctus_x + 2 * (ctus_y - 1)): a launch per wavefront
-#: diagonal for luma and one for chroma.
+#: frame batch adds ctus_x + 2 * (ctus_y - 1): a launch per wavefront
+#: diagonal, whichever planes it covers.
 launches = 0
+
+#: the planes (blockIdx.z offset and count) of each component selection
+_PLANES = {("luma",): (0, 1), ("chroma",): (1, 2), ("chroma", "luma"): (0, 3)}
 
 _CSRC = os.path.join(cuda_build.CSRC_DIR, "recon_frame.cu")
 _SO = os.path.join(BUILD_DIR, "librecon_frame.so")
@@ -148,9 +152,10 @@ def build_job():
 
 def _bind(lib):
     lib.recon_frame_launch.restype = ctypes.c_int
+    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.recon_frame_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 8 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        [c_ptr] * 12 + [c_ptr, c_int] * 2 + [c_ptr] * 2 + [c_int] * 6
+        + ([c_int] + [c_float] * 5) * 2 + [c_ptr])
     return lib
 
 
@@ -159,8 +164,14 @@ def load_kernel():
     git-ignored build directory) and load the kernel library."""
     global _lib
     if _lib is None:
-        _lib = _bind(ctypes.CDLL(cuda_build.build(_CSRC, _SO, _NVCC_FLAGS)))
+        _lib = load_library(cuda_build.build(_CSRC, _SO, _NVCC_FLAGS))
     return _lib
+
+
+def load_library(path):
+    """Load and bind a library built from the kernel's source (the
+    package's build, another build of it, or the CPU build)."""
+    return _bind(ctypes.CDLL(path))
 
 
 def host_build_command(out, src=_CSRC):
@@ -176,7 +187,7 @@ def load_host_build(out):
     """Build the source for the CPU into the file `out` and bind it."""
     subprocess.run(host_build_command(out), check=True, capture_output=True,
                    text=True)
-    return _bind(ctypes.CDLL(out))
+    return load_library(out)
 
 
 def _check(name, t, dtype, shape, device):
@@ -196,15 +207,20 @@ def run(lib, ys, cbs, crs, depth8, modes4, nxn8, *, qp: int, pad_w: int,
         pad_h: int, rdoq: bool, stream,
         components=("luma", "chroma")):
     """Check the operands, allocate the six output planes on their device
-    and call `recon_frame_launch` of `lib` once per component group.
-    Returns ((recon_y, recon_cb, recon_cr, coef_y, coef_cb, coef_cr),
-    kernel launches made). Raises on any operand the kernel does not take
-    and on a launch error."""
+    and call `recon_frame_launch` of `lib` once for the planes of
+    `components` (luma: Y; chroma: Cb and Cr; both: all three in each
+    launch). Returns ((recon_y, recon_cb, recon_cr, coef_y, coef_cb,
+    coef_cr), kernel launches made). Raises on any operand the kernel does
+    not take and on a launch error."""
     if pad_w % 8 or pad_h % 8 or pad_w <= 0 or pad_h <= 0:
         raise ValueError(f"coded size {pad_w}x{pad_h} is not a positive "
                          "multiple of 8")
     if not 0 <= qp <= 51:
         raise ValueError(f"qp {qp} outside 0..51")
+    planes = _PLANES.get(tuple(sorted(set(components))))
+    if planes is None:
+        raise ValueError(f"components {components!r}: expected luma, "
+                         "chroma or both")
     if ys.dim() != 3:
         raise ValueError("ys: expected [F, pad_h, pad_w]")
     F = ys.shape[0]
@@ -220,37 +236,27 @@ def run(lib, ys, cbs, crs, depth8, modes4, nxn8, *, qp: int, pad_w: int,
     rec = [torch.zeros_like(p) for p in (ys, cbs, crs)]
     coef = [torch.zeros(p.shape, dtype=torch.int16, device=dev)
             for p in (ys, cbs, crs)]
-    n_diag = -(-w8 // 8) + 2 * (-(-h8 // 8) - 1)
-    made = 0
     if F == 0:
-        return tuple(rec + coef), made
-    for comp in components:
-        luma = comp == "luma"
-        if not luma and comp != "chroma":
-            raise ValueError(f"unknown component group {comp!r}")
-        p = (0, 0) if luma else (1, 2)
-        cqp = qp if luma else quant.chroma_qp(qp)
-        lam, alphas = rdoq_constants(cqp)
-        steps = steps_y if luma else steps_c
-        err = lib.recon_frame_launch(
-            (ys, cbs, crs)[p[0]].data_ptr(), (ys, cbs, crs)[p[1]].data_ptr(),
-            rec[p[0]].data_ptr(), rec[p[1]].data_ptr(),
-            coef[p[0]].data_ptr(), coef[p[1]].data_ptr(),
-            depth8.data_ptr(), modes4.data_ptr(), nxn8.data_ptr(),
-            steps.data_ptr(), steps.shape[0], t32.data_ptr(),
-            dst4.data_ptr(), F, pad_w if luma else wc,
-            pad_h if luma else hc, w8, h8, int(luma), cqp, int(bool(rdoq)),
-            lam, *alphas, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"recon_frame kernel launch failed ({comp}): CUDA error {err}")
-        made += n_diag
+        return tuple(rec + coef), 0
+    cqp = quant.chroma_qp(qp)
+    lam_y, alphas_y = rdoq_constants(qp)
+    lam_c, alphas_c = rdoq_constants(cqp)
+    made = lib.recon_frame_launch(
+        *(t.data_ptr() for t in (ys, cbs, crs, *rec, *coef, depth8, modes4,
+                                 nxn8)),
+        steps_y.data_ptr(), steps_y.shape[0], steps_c.data_ptr(),
+        steps_c.shape[0], t32.data_ptr(), dst4.data_ptr(), F, w8, h8,
+        int(bool(rdoq)), *planes, qp, lam_y, *alphas_y, cqp, lam_c,
+        *alphas_c, stream)
+    if made < 0:
+        raise RuntimeError(
+            f"recon_frame kernel launch failed: CUDA error {-made}")
     return tuple(rec + coef), made
 
 
 def encode_frame_planes_cuda(ys, cbs, crs, depth8, modes4, nxn8, *, qp: int,
                              pad_w: int, pad_h: int, rdoq: bool = True,
-                             components=("luma", "chroma")):
+                             components=("luma", "chroma"), lib=None):
     """Launch the kernel on CUDA tensors (or raise). ys [F, pad_h, pad_w],
     cbs / crs [F, pad_h/2, pad_w/2] uint8; depth8 [F, pad_h/8, pad_w/8]
     and modes4 [F, pad_h/4, pad_w/4] int32; nxn8 [F, pad_h/8, pad_w/8]
@@ -258,12 +264,15 @@ def encode_frame_planes_cuda(ys, cbs, crs, depth8, modes4, nxn8, *, qp: int,
     (CUs inside the coded frame, modes 0..34): the kernel does not check
     them. Returns the six planes (recon uint8 Y/Cb/Cr, levels int16
     Y/Cb/Cr) with the leading F; asynchronous on the current stream.
-    `components` limits the work to one group (the other group's planes
-    come back zero): the measurements time luma and chroma apart."""
+    One launch per wavefront diagonal covers the planes of `components`
+    ("luma": Y; "chroma": Cb and Cr; both by default; the planes left out
+    come back zero): the measurements time luma and chroma apart. `lib`:
+    another build of the source (`load_library`), for measurements that
+    compare builds; default the package's own."""
     global launches
     if not ys.is_cuda:
         raise ValueError("encode_frame_planes_cuda takes CUDA tensors")
-    lib = load_kernel()
+    lib = load_kernel() if lib is None else lib
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
         planes, made = run(lib, ys, cbs, crs, depth8, modes4, nxn8, qp=qp,

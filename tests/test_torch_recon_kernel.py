@@ -178,6 +178,49 @@ def test_kernel_transforms_equal_ops_transforms(n, use_dst):
         np.testing.assert_array_equal(inverse_np(deq[i], use_dst), back[i])
 
 
+def uniform_decisions(pad_w, pad_h, depth, nxn, seed):
+    """Decisions of one depth everywhere (raised where a CU would cross
+    the frame edge), NxN on every 8x8 CU if `nxn`, seeded random modes:
+    every TU of a plane has one size, so each instance of the kernel's TU
+    body (`code_tu<S, N, DST>`) is reached on its own."""
+    rng = np.random.RandomState(seed)
+    h8, w8 = pad_h // 8, pad_w // 8
+    d8 = np.full((h8, w8), depth, np.int32)
+    for y in range(h8):
+        for x in range(w8):
+            while True:
+                s = 8 >> d8[y, x]
+                if (x // s + 1) * s <= w8 and (y // s + 1) * s <= h8:
+                    break
+                d8[y, x] += 1
+    m4 = np.zeros((2 * h8, 2 * w8), np.int32)
+    for y in range(h8):
+        for x in range(w8):
+            s = 8 >> d8[y, x]
+            if x % s == 0 and y % s == 0:
+                m4[2 * y:2 * (y + s), 2 * x:2 * (x + s)] = rng.randint(0, 35)
+    nxn8 = (d8 == 3) & nxn
+    for y, x in zip(*np.nonzero(nxn8)):
+        m4[2 * y:2 * y + 2, 2 * x:2 * x + 2] = rng.randint(0, 35, (2, 2))
+    return d8, m4[::2, ::2].copy(), m4, nxn8
+
+
+def _stack_case(cfg, pfs, dec, qp, rdoq):
+    """The batched tensors of frames and decisions, and the plain result."""
+    stack = lambda xs, dt: torch.as_tensor(np.stack(xs)).to(dt).contiguous()
+    args = (stack([p.y for p in pfs], torch.uint8),
+            stack([p.cb for p in pfs], torch.uint8),
+            stack([p.cr for p in pfs], torch.uint8),
+            stack([d[0] for d in dec], torch.int32),
+            stack([d[2] for d in dec], torch.int32),
+            stack([d[3] for d in dec], torch.bool))
+    kw = dict(qp=qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height, rdoq=rdoq)
+    t_recon.batches = 0
+    plain = t_recon.encode_frame_planes_batched(*args, **kw, device="cpu")
+    assert t_recon.batches > 0          # CPU tensors: the plain version
+    return args, kw, plain
+
+
 @functools.lru_cache(maxsize=None)
 def _case(w, h, qp, rdoq):
     """Two seeded frames with seeded legal decisions (mixed depths, forced
@@ -188,17 +231,7 @@ def _case(w, h, qp, rdoq):
            for f in range(2)]
     dec = [bench_hooks.random_legal_decisions(pw, ph, h + qp + f)
            for f in range(2)]
-    stack = lambda xs, dt: torch.as_tensor(np.stack(xs)).to(dt).contiguous()
-    args = (stack([p.y for p in pfs], torch.uint8),
-            stack([p.cb for p in pfs], torch.uint8),
-            stack([p.cr for p in pfs], torch.uint8),
-            stack([d[0] for d in dec], torch.int32),
-            stack([d[2] for d in dec], torch.int32),
-            stack([d[3] for d in dec], torch.bool))
-    kw = dict(qp=qp, pad_w=pw, pad_h=ph, rdoq=rdoq)
-    t_recon.batches = 0
-    plain = t_recon.encode_frame_planes_batched(*args, **kw, device="cpu")
-    assert t_recon.batches > 0          # CPU tensors: the plain version
+    args, kw, plain = _stack_case(cfg, pfs, dec, qp, rdoq)
     return cfg, pfs, dec, args, kw, plain
 
 
@@ -237,7 +270,8 @@ def test_kernel_source_built_for_the_cpu_equals_plain(host_lib, w, h, qp,
     cfg, _, _, args, kw, plain = _case(w, h, qp, rdoq)
     launches = rk.launches
     got, made = rk.run(host_lib, *args, **kw, stream=None)
-    assert made == 2 * (cfg.ctus_x + 2 * (cfg.ctus_y - 1))
+    # one launch per wavefront diagonal covers Y, Cb and Cr
+    assert made == cfg.ctus_x + 2 * (cfg.ctus_y - 1)
     assert rk.launches == launches      # only the CUDA wrapper counts
     for name, g in zip(PLANES, got):
         want = getattr(plain, name)
@@ -245,16 +279,55 @@ def test_kernel_source_built_for_the_cpu_equals_plain(host_lib, w, h, qp,
         np.testing.assert_array_equal(g.numpy(), want.numpy(), name)
 
 
+UNIFORM = [(w, h, depth, nxn) for (w, h) in ((128, 64), (96, 80))
+           for (depth, nxn) in ((1, False), (2, False), (3, False), (3, True))]
+
+
+@pytest.mark.parametrize("w,h,depth,nxn", UNIFORM)
+def test_kernel_source_on_uniform_depth_equals_plain(host_lib, w, h, depth,
+                                                     nxn):
+    """One TU size per plane (32/16, 16/8, 8/4 or, under NxN, 4/4 for
+    luma/chroma; the partial CTUs of 96x80 raise the depth at the edge),
+    so that each TU body instance of the source is held to the plain
+    version on its own, on all six planes."""
+    qp, rdoq = (22, True) if depth % 2 else (37, False)
+    cfg = j_headers.EncoderConfig(width=w, height=h, qp=qp, rdoq=rdoq)
+    pw, ph = cfg.pad_width, cfg.pad_height
+    pfs = [pad_frame(synth_frame(w, h, seed=depth + f), pw, ph)
+           for f in range(2)]
+    dec = [uniform_decisions(pw, ph, depth, nxn, 10 * depth + f)
+           for f in range(2)]
+    assert all((d[0] >= depth).all() and d[3].any() == nxn for d in dec)
+    args, kw, plain = _stack_case(cfg, pfs, dec, qp, rdoq)
+    got, made = rk.run(host_lib, *args, **kw, stream=None)
+    assert made == cfg.ctus_x + 2 * (cfg.ctus_y - 1)
+    for name, g in zip(PLANES, got):
+        np.testing.assert_array_equal(g.numpy(), getattr(plain, name).numpy(),
+                                      name)
+    assert int(plain.coef_y.ne(0).sum()) > 0
+
+
 def test_component_groups_run_apart(host_lib):
+    """`components` selects the planes of each launch (Y; Cb and Cr; all
+    three): each selection makes one launch per diagonal and leaves the
+    other planes zero."""
     cfg, _, _, args, kw, plain = _case(96, 80, 37, True)
-    luma, _ = rk.run(host_lib, *args, **kw, stream=None,
-                     components=("luma",))
-    chroma, _ = rk.run(host_lib, *args, **kw, stream=None,
-                       components=("chroma",))
+    n_diag = cfg.ctus_x + 2 * (cfg.ctus_y - 1)
+    luma, made_y = rk.run(host_lib, *args, **kw, stream=None,
+                          components=("luma",))
+    chroma, made_c = rk.run(host_lib, *args, **kw, stream=None,
+                            components=("chroma",))
+    both, made = rk.run(host_lib, *args, **kw, stream=None,
+                        components=("chroma", "luma"))
+    assert made_y == made_c == made == n_diag
     for i in (0, 3):
         assert torch.equal(luma[i], plain[i]) and not chroma[i].any()
     for i in (1, 2, 4, 5):
         assert torch.equal(chroma[i], plain[i]) and not luma[i].any()
+    for i in range(6):
+        assert torch.equal(both[i], plain[i])
+    with pytest.raises(ValueError):
+        rk.run(host_lib, *args, **kw, stream=None, components=("cb",))
 
 
 @pytest.mark.parametrize("what", ["dtype", "shape", "layout", "qp", "cpu"])

@@ -11,14 +11,17 @@ one JSON file):
 - `frames`: `--frames` frames one at a time through `AIEncoder.encode`:
   `decide_s / recon_s / entropy_s`, the kernels' launches;
 - `recon_frame_tu_step_us`: the time of one TU step of the reconstruction
-  kernel by TU size, from a 64x1024 frame (16 CTUs that depend on each
-  other, so 16 launches of one block) of uniform depth: total time over
-  16 x TUs per CTU, the launch and the CTU's set-up included;
+  kernel by component and TU size (`bench_hooks.recon_tu_step_us`: a
+  64x1024 frame, 16 CTUs that depend on each other, of uniform depth;
+  total time over 16 x TUs per CTU, the launch and the CTU's set-up
+  included);
 - `recon_frame_1080p`: the kernel at frame batches of 1, 8 and 24 on the
-  encoder's own decisions (luma launches, chroma launches, both), its
+  encoder's own decisions (luma planes alone, chroma planes alone, all
+  three as the encoder launches them: 62 launches per batch), its
   roofline bound from this run's decisions, and the dependency floor of
   the wavefront schedule: over the 62 diagonals, the slowest CTU's chain
-  of TU steps at the step times measured above;
+  of TU steps at the step times measured above (luma and chroma in one
+  launch, and the older schedule of separate launches beside it);
 - `decide_1080p_trace`, `frames_batch8_trace`: the decide stage of one
   frame, and `FrameParallelAI.encode_batch` of 8 frames, under
   `torch.profiler`: device kernels, device-busy time, idle share of the
@@ -93,40 +96,13 @@ def time_ms(fn, reps=5):
     return t0.elapsed_time(t1) / reps
 
 
-def tu_step_times(device):
-    """Microseconds per TU step of the reconstruction kernel, by
-    component group and TU size (see the module note)."""
-    from hevc_tpu_torch.pipeline import recon_kernel
-    w, h, ctus = 64, 1024, 16
-    rng = np.random.RandomState(3)
-    t = lambda a: torch.as_tensor(a).to(device)
-    ys = t(rng.randint(0, 256, (1, h, w)).astype(np.uint8))
-    cbs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
-    crs = t(rng.randint(0, 256, (1, h // 2, w // 2)).astype(np.uint8))
-    m4 = t(rng.randint(0, 35, (1, h // 4, w // 4)).astype(np.int32))
-    out = {"luma": {}, "chroma": {}}
-    # (depth, NxN) -> luma TU size, chroma TU size, TUs per CTU and plane
-    for depth, nxn, n_y, n_c, tus_y, tus_c in (
-            (1, False, 32, 16, 4, 4), (2, False, 16, 8, 16, 16),
-            (3, False, 8, 4, 64, 64), (3, True, 4, None, 256, None)):
-        d8 = torch.full((1, h // 8, w // 8), depth, dtype=torch.int32,
-                        device=device)
-        nx = torch.full((1, h // 8, w // 8), nxn, dtype=torch.bool,
-                        device=device)
-        for comp, n, tus in (("luma", n_y, tus_y), ("chroma", n_c, tus_c)):
-            if n is None:
-                continue
-            ms = time_ms(lambda: recon_kernel.encode_frame_planes_cuda(
-                ys, cbs, crs, d8, m4, nx, qp=32, pad_w=w, pad_h=h,
-                components=(comp,)), reps=10)
-            out[comp][str(n)] = ms * 1e3 / (ctus * tus)
-    return out
-
-
 def dependency_floor_ms(depth8, nxn8, tu_us):
     """The wavefront schedule's floor for one frame: for every diagonal
-    d = x + 2y the slowest CTU's chain of TU steps, summed over the
-    diagonals, luma launches then chroma launches."""
+    d = x + 2y the slowest chain of TU steps of its CTUs, summed over the
+    diagonals. `ms`: Y, Cb and Cr share each launch, so a diagonal takes
+    the longer of its luma and chroma chains (Cb and Cr are alike);
+    `ms_luma_then_chroma`: the schedule of separate luma and chroma
+    launches, luma's floor plus chroma's."""
     h8, w8 = depth8.shape
     ny, nx = -(-h8 // 8), -(-w8 // 8)
     d = np.full((ny * 8, nx * 8), -1, np.int64)
@@ -143,13 +119,18 @@ def dependency_floor_ms(depth8, nxn8, tu_us):
               + (deep + deep_nxn) * tu_us["chroma"]["4"])
     cy, cx = np.mgrid[0:ny, 0:nx]
     diag = cx + 2 * cy
-    floor = lambda c: sum(c[diag == k].max() for k in range(nx + 2 * (ny - 1)))
-    return {"luma_ms": floor(luma) / 1e3, "chroma_ms": floor(chroma) / 1e3,
-            "ms": (floor(luma) + floor(chroma)) / 1e3,
-            "chain_tu_steps_luma": float(floor(shallow + mid + deep
-                                               + 4 * deep_nxn)),
-            "chain_tu_steps_chroma": float(floor(shallow + mid + deep
-                                                 + deep_nxn))}
+    per_diag = lambda c: np.array([c[diag == k].max()
+                                   for k in range(nx + 2 * (ny - 1))])
+    y_d, c_d = per_diag(luma), per_diag(chroma)
+    return {"ms": float(np.maximum(y_d, c_d).sum()) / 1e3,
+            "ms_luma_then_chroma": float(y_d.sum() + c_d.sum()) / 1e3,
+            "luma_ms": float(y_d.sum()) / 1e3,
+            "chroma_ms": float(c_d.sum()) / 1e3,
+            "diagonals_set_by_chroma": int((c_d > y_d).sum()),
+            "chain_tu_steps_luma": float(per_diag(shallow + mid + deep
+                                                  + 4 * deep_nxn).sum()),
+            "chain_tu_steps_chroma": float(per_diag(shallow + mid + deep
+                                                    + deep_nxn).sum())}
 
 
 def main():
@@ -196,7 +177,7 @@ def main():
         print(json.dumps(rec), flush=True)
 
     # the reconstruction kernel: TU step times, batches of 1 / 8 / 24
-    tu_us = tu_step_times(device)
+    tu_us = bench_hooks.recon_tu_step_us(device)
     say("recon_frame_tu_step_us", tu_us)
     pfs = [pad_frame(f, cfg.pad_width, cfg.pad_height) for f in frames]
     dec = [enc.decide_frame_full(p.y, None, p.cb, p.cr) for p in pfs]
