@@ -149,7 +149,8 @@ template <int S>
 struct Shared {
     static constexpr int NMAX = S / 2;          // largest TU of the plane
     static constexpr int RMAX = 4 * NMAX + 1;
-    // rows of the plane's step table, in chunks of 16 for the compaction
+    // rows of the plane's step table (the host's STEP_ROWS), in chunks of
+    // 16 for the compaction
     static constexpr int ROWS = S == 64 ? 344 : 88;
     static constexpr int CHUNKS = (ROWS + 15) / 16;
     int t32[32 * 33];                           // row stride 33: no conflicts
@@ -732,13 +733,9 @@ inline void diag_range(int d, int nx, int ny, int* cy_lo, int* cy_hi) {
 }
 
 #ifdef __CUDACC__
-// blocks per SM that the register budget is planned for: 3 gives 80
-// registers and no spills (1: 124 registers, 2 blocks per SM; 4: spills);
-// another build may set it to compare (tools/recon_kernel_variants.py)
-#ifndef RF_MIN_BLOCKS
-#define RF_MIN_BLOCKS 3
-#endif
-__global__ void __launch_bounds__(NT, RF_MIN_BLOCKS)
+// the register budget is planned for 3 blocks per SM: 80 registers and no
+// spills (1: 124 registers, 2 blocks per SM; 4: spills)
+__global__ void __launch_bounds__(NT, 3)
 recon_ctu_kernel(const Args g) {
     __shared__ SharedAll sh;
     code_plane(g, sh, (int)blockIdx.x, (int)blockIdx.y,

@@ -111,7 +111,7 @@ def recon_work(depth8, nxn8, rdoq=True):
     return nbytes, ops
 
 
-def recon_tu_step_us(device, reps=10, lib=None):
+def recon_tu_step_us(device, reps=10):
     """Microseconds per TU step of the reconstruction kernel on the card,
     by component ("luma", "chroma") and TU size ("32" ... "4").
 
@@ -119,8 +119,7 @@ def recon_tu_step_us(device, reps=10, lib=None):
     one block); with one depth (and NxN flag) everywhere each CTU codes one
     TU size. The time of the kernel on one component (CUDA events, `reps`
     frame batches after a warm-up) over 16 x TUs per CTU: the launch and
-    the CTU's set-up included. `lib`: another build of the kernel
-    (`recon_kernel.load_library`); default the package's own."""
+    the CTU's set-up included."""
     import torch
 
     from . import recon_kernel
@@ -146,7 +145,7 @@ def recon_tu_step_us(device, reps=10, lib=None):
                 continue
             run = lambda: recon_kernel.encode_frame_planes_cuda(
                 ys, cbs, crs, d8, m4, nx, qp=32, pad_w=w, pad_h=h,
-                components=(comp,), lib=lib)
+                components=(comp,))
             run()
             torch.cuda.synchronize()
             t0 = torch.cuda.Event(enable_timing=True)

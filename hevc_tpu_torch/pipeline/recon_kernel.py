@@ -39,6 +39,10 @@ from ..ops import quant, rdoq as rdoq_lib, transforms
 #: diagonal, whichever planes it covers.
 launches = 0
 
+#: rows of the luma and chroma step tables: the kernel sizes its leaf list
+#: to them (`Shared<S>::ROWS` in the source)
+STEP_ROWS = {"luma": 344, "chroma": 88}
+
 #: the planes (blockIdx.z offset and count) of each component selection
 _PLANES = {("luma",): (0, 1), ("chroma",): (1, 2), ("chroma", "luma"): (0, 3)}
 
@@ -164,14 +168,8 @@ def load_kernel():
     git-ignored build directory) and load the kernel library."""
     global _lib
     if _lib is None:
-        _lib = load_library(cuda_build.build(_CSRC, _SO, _NVCC_FLAGS))
+        _lib = _bind(ctypes.CDLL(cuda_build.build(_CSRC, _SO, _NVCC_FLAGS)))
     return _lib
-
-
-def load_library(path):
-    """Load and bind a library built from the kernel's source (the
-    package's build, another build of it, or the CPU build)."""
-    return _bind(ctypes.CDLL(path))
 
 
 def host_build_command(out, src=_CSRC):
@@ -187,7 +185,7 @@ def load_host_build(out):
     """Build the source for the CPU into the file `out` and bind it."""
     subprocess.run(host_build_command(out), check=True, capture_output=True,
                    text=True)
-    return load_library(out)
+    return _bind(ctypes.CDLL(out))
 
 
 def _check(name, t, dtype, shape, device):
@@ -233,6 +231,10 @@ def run(lib, ys, cbs, crs, depth8, modes4, nxn8, *, qp: int, pad_w: int,
     _check("modes4", modes4, torch.int32, (F, 2 * h8, 2 * w8), dev)
     _check("nxn8", nxn8, torch.bool, (F, h8, w8), dev)
     steps_y, steps_c, t32, dst4 = _tables_t(dev)
+    for comp, steps in (("luma", steps_y), ("chroma", steps_c)):
+        if steps.shape[0] != STEP_ROWS[comp]:
+            raise ValueError(f"{comp} step table has {steps.shape[0]} rows, "
+                             f"the kernel takes {STEP_ROWS[comp]}")
     rec = [torch.zeros_like(p) for p in (ys, cbs, crs)]
     coef = [torch.zeros(p.shape, dtype=torch.int16, device=dev)
             for p in (ys, cbs, crs)]
@@ -256,7 +258,7 @@ def run(lib, ys, cbs, crs, depth8, modes4, nxn8, *, qp: int, pad_w: int,
 
 def encode_frame_planes_cuda(ys, cbs, crs, depth8, modes4, nxn8, *, qp: int,
                              pad_w: int, pad_h: int, rdoq: bool = True,
-                             components=("luma", "chroma"), lib=None):
+                             components=("luma", "chroma")):
     """Launch the kernel on CUDA tensors (or raise). ys [F, pad_h, pad_w],
     cbs / crs [F, pad_h/2, pad_w/2] uint8; depth8 [F, pad_h/8, pad_w/8]
     and modes4 [F, pad_h/4, pad_w/4] int32; nxn8 [F, pad_h/8, pad_w/8]
@@ -266,13 +268,11 @@ def encode_frame_planes_cuda(ys, cbs, crs, depth8, modes4, nxn8, *, qp: int,
     Y/Cb/Cr) with the leading F; asynchronous on the current stream.
     One launch per wavefront diagonal covers the planes of `components`
     ("luma": Y; "chroma": Cb and Cr; both by default; the planes left out
-    come back zero): the measurements time luma and chroma apart. `lib`:
-    another build of the source (`load_library`), for measurements that
-    compare builds; default the package's own."""
+    come back zero): the measurements time luma and chroma apart."""
     global launches
     if not ys.is_cuda:
         raise ValueError("encode_frame_planes_cuda takes CUDA tensors")
-    lib = load_kernel() if lib is None else lib
+    lib = load_kernel()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream().cuda_stream
         planes, made = run(lib, ys, cbs, crs, depth8, modes4, nxn8, qp=qp,

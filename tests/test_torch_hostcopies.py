@@ -148,8 +148,7 @@ def test_copied_module_matches_original(what, tmp_path):
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "bench_torch.py"),
-           os.path.join(ROOT, "tools", "profile_torch_ai.py"),
-           os.path.join(ROOT, "tools", "recon_kernel_variants.py")]
+           os.path.join(ROOT, "tools", "profile_torch_ai.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "hevc_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -127,6 +127,7 @@ def inverse_np(coef, use_dst=False):
 def test_step_tables_equal_the_reference():
     lu, ch = rk.luma_steps(), rk.chroma_steps()
     assert lu.shape == (344, 8) and ch.shape == (88, 8)   # 2 x 88 = 176 TBs
+    assert rk.STEP_ROWS == {"luma": 344, "chroma": 88}
     np.testing.assert_array_equal(lu, recon_pallas._luma_steps())
     np.testing.assert_array_equal(ch, recon_pallas._chroma_steps())
     np.testing.assert_array_equal(rk.node_table(), t_recon.node_table())
@@ -279,18 +280,18 @@ def test_kernel_source_built_for_the_cpu_equals_plain(host_lib, w, h, qp,
         np.testing.assert_array_equal(g.numpy(), want.numpy(), name)
 
 
-UNIFORM = [(w, h, depth, nxn) for (w, h) in ((128, 64), (96, 80))
-           for (depth, nxn) in ((1, False), (2, False), (3, False), (3, True))]
+UNIFORM = [(w, h, depth, nxn, qp, rdoq) for (w, h) in ((128, 64), (96, 80))
+           for (depth, nxn) in ((1, False), (2, False), (3, False), (3, True))
+           for (qp, rdoq) in ((22, True), (37, False))]
 
 
-@pytest.mark.parametrize("w,h,depth,nxn", UNIFORM)
+@pytest.mark.parametrize("w,h,depth,nxn,qp,rdoq", UNIFORM)
 def test_kernel_source_on_uniform_depth_equals_plain(host_lib, w, h, depth,
-                                                     nxn):
+                                                     nxn, qp, rdoq):
     """One TU size per plane (32/16, 16/8, 8/4 or, under NxN, 4/4 for
     luma/chroma; the partial CTUs of 96x80 raise the depth at the edge),
     so that each TU body instance of the source is held to the plain
-    version on its own, on all six planes."""
-    qp, rdoq = (22, True) if depth % 2 else (37, False)
+    version on its own, on all six planes, with RDOQ on and off."""
     cfg = j_headers.EncoderConfig(width=w, height=h, qp=qp, rdoq=rdoq)
     pw, ph = cfg.pad_width, cfg.pad_height
     pfs = [pad_frame(synth_frame(w, h, seed=depth + f), pw, ph)
@@ -330,14 +331,25 @@ def test_component_groups_run_apart(host_lib):
         rk.run(host_lib, *args, **kw, stream=None, components=("cb",))
 
 
-@pytest.mark.parametrize("what", ["dtype", "shape", "layout", "qp", "cpu"])
-def test_wrapper_refuses_what_the_kernel_does_not_take(host_lib, what):
+@pytest.mark.parametrize("what", ["dtype", "shape", "layout", "qp", "cpu",
+                                  "steps"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(host_lib, what,
+                                                       monkeypatch):
     _, _, _, args, kw, _ = _case(96, 80, 37, True)
     args = list(args)
     if what == "cpu":
         # the CUDA wrapper takes CUDA tensors only; there is no fallback
         with pytest.raises(ValueError):
             rk.encode_frame_planes_cuda(*args, **kw)
+        return
+    if what == "steps":
+        # a step table longer than the kernel's leaf list is refused before
+        # the launch, not reported as a CUDA error
+        steps_y, steps_c, t32, dst4 = rk._tables_t(args[0].device)
+        monkeypatch.setattr(rk, "_tables_t", lambda dev: (
+            torch.cat([steps_y, steps_y[:1]]), steps_c, t32, dst4))
+        with pytest.raises(ValueError, match="luma step table"):
+            rk.run(host_lib, *args, **kw, stream=None)
         return
     if what == "dtype":
         args[3] = args[3].to(torch.int64)
