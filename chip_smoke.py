@@ -19,6 +19,7 @@ fails at once.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,9 +43,19 @@ N_CTU_1080P = CTUS_X_1080P * CTUS_Y_1080P
 #: K2's launches per frame batch: one per wavefront diagonal
 #: d = ctu_x + 2 * ctu_y, each covering Y, Cb and Cr
 RECON_LAUNCHES_1080P = CTUS_X_1080P + 2 * (CTUS_Y_1080P - 1)
-#: K1's three launches per 1080p frame: n -> batch of nodes
+#: K1's three launches per 1080p frame: n -> batch of nodes (the
+#: benchmark's decide sub-batches of 4 frames are 4 times these)
 SHAPES_1080P = {16: N_CTU_1080P * 16, 8: N_CTU_1080P * 64,
                 4: N_CTU_1080P * 256}
+#: the pipe that issues each opcode of K1's SASS: "alu" (16 lanes per SM
+#: sub-partition), "fma" (integer multiply-adds run on the float32 pipe's
+#: heavy half, 16 lanes), "lsu" (memory)
+SASS_PIPES = {
+    "alu": {"IADD3", "LOP3", "SHF", "ISETP", "IABS", "IMNMX", "SEL", "LEA",
+            "PRMT", "PLOP3", "BMSK", "SGXT", "FLO", "POPC", "VIMNMX"},
+    "fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"},
+    "lsu": {"LDS", "STS", "LDG", "STG", "LDL", "STL", "LD", "ST", "LDC"},
+}
 
 
 def say(obj):
@@ -102,30 +113,101 @@ def satd_bound_ms(n, B):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def satd_build_report(log, so):
+    """Per instance of K1 (n = 4 / 8 / 16): registers, stack and spills
+    from the `nvcc -Xptxas -v` log of a build of the same source, and the
+    instruction mix of its SASS (`cuobjdump -sass`, static counts by
+    opcode and by the pipe that issues them; the listing is kept beside
+    the library as `<so>.sass`)."""
+    rep, fn = {}, None
+    inst = lambda name: (re.search(r"satd35_kernelILi(\d+)EE", name or "")
+                         or [None, None])[1]
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        n = inst(fn)
+        if n is None:
+            continue
+        r = rep.setdefault(f"n={n}", {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            r.update(stack_bytes=int(m.group(1)),
+                     spill_store_bytes=int(m.group(2)),
+                     spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            r["shared_bytes"] = int(m.group(1))
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    with open(so + ".sass", "w") as f:
+        f.write(sass)
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = inst(m.group(1))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if m and fn is not None:
+            op = m.group(1)
+            mix = rep.setdefault(f"n={fn}", {}).setdefault("sass", {})
+            mix[op] = mix.get(op, 0) + 1
+    for r in rep.values():
+        mix = r.get("sass", {})
+        r["by_pipe"] = {pipe: sum(c for op, c in mix.items()
+                                  if op.split(".")[0] in ops)
+                        for pipe, ops in SASS_PIPES.items()}
+        r["sass"] = dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+    return rep
+
+
 def check_kernel(device):
-    """K1 against its plain version on the card; returns the per-n record."""
+    """K1 against its plain version on the card, tolerance 0: luma at the
+    three 1080p F = 1 batches and at the benchmark's decide sub-batches
+    (x4), luma and chroma at a ragged batch of 70; timed at the F = 1 and
+    x4 batches. Returns the per-n record and the largest difference."""
     from hevc_tpu_torch.ops import intra_mm
     per_n = {}
     max_err = 0
     for n, B in SHAPES_1080P.items():
-        for b, seed in ((B, 100 + n), (70, 200 + n)):     # 70: ragged block
+        for b, comp, seed in ((B, "luma", 100 + n), (4 * B, "luma", 300 + n),
+                              (70, "luma", 200 + n), (70, "chroma", 400 + n)):
             r_u, r_f, orig = satd_inputs(n, b, seed, device)
-            got = intra_mm.satd_all_modes(r_u, r_f, orig, n)
+            got = intra_mm.satd_all_modes(r_u, r_f, orig, n, component=comp)
             torch.cuda.synchronize()
-            want = intra_mm.satd_all_modes_plain(r_u, r_f, orig, n)
+            want = intra_mm.satd_all_modes_plain(r_u, r_f, orig, n,
+                                                 component=comp)
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             max_err = max(max_err, err)
             if got.shape != (b, 35) or got.dtype != torch.int32 or err != 0:
-                fail(f"satd35 n={n} B={b}: differs from the plain version "
-                     f"(max abs err {err})")
-        r_u, r_f, orig = satd_inputs(n, B, 100 + n, device)
-        ms = time_ms(lambda: intra_mm.satd_all_modes(r_u, r_f, orig, n), 20)
-        plain = time_ms(
-            lambda: intra_mm.satd_all_modes_plain(r_u, r_f, orig, n), 3)
-        bound, by = satd_bound_ms(n, B)
-        per_n[str(n)] = {"B": B, "kernel_ms": ms, "plain_ms": plain,
-                         "bound_ms": bound, "bound_by": by}
-        say({"phase": "satd35_vs_plain", "n": n, "B": B, "ragged_B": 70,
+                fail(f"satd35 n={n} B={b} {comp}: differs from the plain "
+                     f"version (max abs err {err})")
+            del got, want
+        rec = {}
+        for key, b in (("F1", B), ("decide4", 4 * B)):
+            r_u, r_f, orig = satd_inputs(n, b, 100 + n, device)
+            ms = time_ms(lambda: intra_mm.satd_all_modes(r_u, r_f, orig, n),
+                         20)
+            bound, by = satd_bound_ms(n, b)
+            rec[key] = {"B": b, "kernel_ms": ms, "bound_ms": bound,
+                        "bound_by": by}
+            if key == "F1":
+                rec[key]["plain_ms"] = time_ms(
+                    lambda: intra_mm.satd_all_modes_plain(r_u, r_f, orig, n),
+                    3)
+        per_n[str(n)] = {**rec["F1"], "decide4": rec["decide4"]}
+        say({"phase": "satd35_vs_plain", "n": n,
+             "equal_at": {"luma": [B, 4 * B, 70], "chroma": [70]},
              "equal": True, "tolerance": 0, **per_n[str(n)]})
     return per_n, max_err
 
@@ -259,16 +341,28 @@ def main():
         if os.path.exists(so):
             os.remove(so)
     t0 = time.perf_counter()
+    # K1 once more with `-Xptxas -v`, beside the other builds, for its
+    # registers, spills and SASS
+    satd_v = os.path.join(os.path.dirname(intra_mm._SO), "satd35_ptxas.so")
+    os.makedirs(os.path.dirname(satd_v), exist_ok=True)
+    ptxas = subprocess.Popen(
+        cuda_build.nvcc_command(intra_mm._CSRC, satd_v, ("-Xptxas", "-v")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     cuda_build.build_all([(intra_mm._CSRC, intra_mm._SO, ()),
                           recon_kernel.build_job()])
     intra_mm.load_kernel()
     recon_kernel.load_kernel()
     t_kernel = time.perf_counter() - t0
+    ptxas_log, _ = ptxas.communicate()
+    if ptxas.returncode != 0:
+        fail(f"nvcc -Xptxas -v of satd35.cu failed:\n{ptxas_log}")
     native.load()
     say({"phase": "build", "kernels_nvcc_s": t_kernel,
          "native_entropy_gxx_s": time.perf_counter() - t0 - t_kernel,
          "commands": [" ".join(intra_mm.nvcc_command()),
                       " ".join(recon_kernel.nvcc_command())]})
+    satd_usage = satd_build_report(ptxas_log, satd_v)
+    say({"phase": "satd35_build", "per_instance": satd_usage})
 
     # 3. each kernel against its plain version on the card
     per_n, max_err = check_kernel(device)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import subprocess
 
 import numpy as np
 import torch
@@ -164,7 +165,7 @@ def satd_all_modes_plain(r_u, r_f, orig, n, *, component="luma",
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/satd35.cu): packed per-column table, build, launch.
+# CUDA kernel (csrc/satd35.cu): build, operand checks, launch.
 # ---------------------------------------------------------------------------
 
 #: launches of the CUDA kernel by `satd_all_modes` (plain integer; a run
@@ -181,61 +182,43 @@ def nvcc_command(src=_CSRC, out=_SO):
     return cuda_build.nvcc_command(src, out)
 
 
+def _bind(lib):
+    lib.satd35_launch.restype = ctypes.c_int
+    lib.satd35_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
 def load_kernel():
     """Build (at first use, from the source in the package, into the
     git-ignored build directory) and load the kernel library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(cuda_build.build(_CSRC, _SO))
-    lib.satd35_launch.restype = ctypes.c_int
-    lib.satd35_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    _lib = lib
-    return lib
+    if _lib is None:
+        _lib = _bind(ctypes.CDLL(cuda_build.build(_CSRC, _SO)))
+    return _lib
 
 
-@functools.lru_cache(maxsize=None)
-def packed_table(n: int, component: str = "luma", bit_depth: int = 8):
-    """Per prediction column (mode, y, x) the at most four non-zero
-    weights of `_tables`' W as a packed record of four int32 words
-    [35*n*n, 4]: (four ref indices, one byte each, into [r_u | r_f]),
-    (four int8 weights), (bias | shift << 8 | clip << 16), 0.
-    The per-mode filtered/unfiltered choice stays baked into the
-    indices (filtered refs are indices >= 4n+1)."""
-    W, inv_shift, clip = _tables(n, component, bit_depth)
-    R2 = W.shape[0] - 1                       # 2 * (4n + 1) ref rows
-    if R2 > 256:
-        raise ValueError("packed table holds one-byte ref indices: n <= 16")
-    Wr = W[:R2].astype(np.int64)
-    nz = Wr != 0
-    if int(nz.sum(0).max()) > 4:
-        raise AssertionError("a prediction column has more than 4 taps")
-    order = np.argsort(~nz, axis=0, kind="stable")[:4]        # [4, ncol]
-    wts = np.take_along_axis(Wr, order, axis=0)                # 0 beyond
-    idx = np.where(wts != 0, order, 0).astype(np.uint32)
-    if wts.min() < -128 or wts.max() > 127:
-        raise AssertionError("weight does not fit int8")
-    wb = (wts & 0xFF).astype(np.uint32)
-    shift = np.round(-np.log2(inv_shift)).astype(np.uint32)
-    bias = W[R2].astype(np.uint32)
-    out = np.zeros((W.shape[1], 4), np.uint32)
-    for t in range(4):
-        out[:, 0] |= idx[t] << (8 * t)
-        out[:, 1] |= wb[t] << (8 * t)
-    out[:, 2] = bias | (shift << 8) | (clip.astype(np.uint32) << 16)
-    return out.view(np.int32)
+def host_build_command(out, src=_CSRC):
+    """The command that builds the kernel's source as plain C++ for the
+    CPU (the threads of a block become a loop): what the CPU tests run to
+    hold the kernel's body against the plain version. Nothing on an
+    encoder's path uses that library."""
+    return ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+            os.path.abspath(src), "-o", out]
 
 
-@functools.lru_cache(maxsize=None)
-def _packed_table_t(n, component, bit_depth, device):
-    return torch.as_tensor(packed_table(n, component, bit_depth),
-                           device=device).contiguous()
+def load_host_build(out):
+    """Build the source for the CPU into the file `out` and bind it."""
+    subprocess.run(host_build_command(out), check=True, capture_output=True,
+                   text=True)
+    return _bind(ctypes.CDLL(out))
 
 
-def _satd_all_modes_cuda(r_u, r_f, orig, n, *, component, bit_depth):
-    """Check the operands, launch `satd35_launch`, raise on any error."""
-    global launches
+def run(lib, r_u, r_f, orig, n, *, component="luma", bit_depth=8,
+        stream=None):
+    """Check the operands, allocate the [B, 35] output on their device and
+    call `satd35_launch` of `lib` once. Raises on any operand the kernel
+    does not take and on a launch error."""
     if n not in (4, 8, 16):
         raise ValueError(f"satd35 kernel takes n in (4, 8, 16), got {n}")
     if bit_depth != 8:
@@ -244,7 +227,7 @@ def _satd_all_modes_cuda(r_u, r_f, orig, n, *, component, bit_depth):
     R = 4 * n + 1
     for name, t, shape in (("r_u", r_u, (B, R)), ("r_f", r_f, (B, R)),
                            ("orig", orig, (B, n, n))):
-        if t.device != r_u.device or not t.is_cuda:
+        if t.device != r_u.device:
             raise ValueError(f"{name}: expected a tensor on {r_u.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
@@ -253,20 +236,29 @@ def _satd_all_modes_cuda(r_u, r_f, orig, n, *, component, bit_depth):
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    lib = load_kernel()
-    tab = _packed_table_t(n, component, bit_depth, r_u.device)
     out = torch.empty((B, 35), dtype=torch.int32, device=r_u.device)
     if B == 0:
         return out
     dc_edge = int(component == "luma" and n < 32)
-    with torch.cuda.device(r_u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.satd35_launch(r_u.data_ptr(), r_f.data_ptr(),
-                                orig.data_ptr(), tab.data_ptr(),
-                                out.data_ptr(), B, n, dc_edge, stream)
+    err = lib.satd35_launch(r_u.data_ptr(), r_f.data_ptr(), orig.data_ptr(),
+                            out.data_ptr(), B, n, dc_edge, stream)
     if err != 0:
         raise RuntimeError(f"satd35 kernel launch failed: CUDA error {err}")
-    launches += 1
+    return out
+
+
+def _satd_all_modes_cuda(r_u, r_f, orig, n, *, component, bit_depth):
+    """Launch the kernel on CUDA tensors (or raise)."""
+    global launches
+    if not r_u.is_cuda:
+        raise ValueError("the satd35 kernel takes CUDA tensors")
+    lib = load_kernel()
+    with torch.cuda.device(r_u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = run(lib, r_u, r_f, orig, n, component=component,
+                  bit_depth=bit_depth, stream=stream)
+    if r_u.shape[0]:
+        launches += 1
     return out
 
 

@@ -78,36 +78,6 @@ def test_predict_all_modes_mm_equal(n, component):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("component", ["luma", "chroma"])
-@pytest.mark.parametrize("n", [4, 8, 16])
-def test_packed_table_reproduces_predictions(n, component):
-    """The table the CUDA kernel reads, evaluated here in integer NumPy
-    exactly as the kernel evaluates it (taps, bias, arithmetic shift, clip
-    flag), gives the plain version's predictions for every mode but DC
-    (which the kernel computes with _dc_block's arithmetic)."""
-    r_u, _ = _inputs(n, 21, 7 * n)
-    tr_u = torch.from_numpy(r_u)
-    tr_f = t_intra.filter_refs(tr_u)
-    want = t_mm.predict_all_modes_mm(tr_u, tr_f, n,
-                                     component=component).numpy()
-    tab = t_mm.packed_table(n, component).view(np.uint32)
-    assert tab.shape == (35 * n * n, 4) and (tab[:, 3] == 0).all()
-    refs = np.concatenate([r_u, tr_f.numpy()], 1).astype(np.int64)
-    acc = np.broadcast_to((tab[:, 2] & 0xFF).astype(np.int64),
-                          (refs.shape[0], tab.shape[0])).copy()
-    for t in range(4):
-        w = ((tab[:, 1] >> (8 * t)) & 0xFF).astype(np.uint8).view(np.int8)
-        idx = (tab[:, 0] >> (8 * t)) & 0xFF
-        acc += w.astype(np.int64)[None] * refs[:, idx]
-    pred = acc >> ((tab[:, 2] >> 8) & 0xFF).astype(np.int64)[None]
-    clip = ((tab[:, 2] >> 16) & 1).astype(bool)
-    pred = np.where(clip[None], np.clip(pred, 0, 255), pred)
-    pred = pred.reshape(-1, 35, n, n)
-    keep = [m for m in range(35) if m != 1]
-    np.testing.assert_array_equal(pred[:, keep], want[:, keep])
-    assert clip.sum() == (2 * n if component == "luma" else 0)
-
-
 def test_cuda_wrapper_rejects_bad_operands():
     """Operand checks run before any launch; a CPU tensor never reaches
     the CUDA wrapper through satd_all_modes, so call it directly."""
