@@ -5,7 +5,9 @@
 
 Builds the port's kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card at the shapes the
-encoder gives it (the 35-mode SATD kernel at its three 1080p batches, the
+encoder gives it (the 35-mode SATD kernel at its three 1080p batches, at
+the benchmark's decide sub-batches and, luma and chroma, at a ragged
+batch, with its registers, spills and SASS instruction mix; the
 reconstruction kernel on random legal decisions at 416x240 and on the
 encoder's own decisions at 1080p), drives the main paths with the trained
 ETH-CNN at QP 32 on 1080p frames — `AIEncoder.encode` frame by frame and
@@ -32,9 +34,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "models", "eth_cnn_qp30~35.npz")
 HM_DECODER = os.path.join(ROOT, "tools", "hm", "TAppDecoderStatic")
 
-# Published peaks of one H100 SXM: device memory 3.35 TB/s; 67 TFLOP/s
-# float32 outside the tensor cores = 33.5e12 instructions/s (an FMA is
-# two FLOPs), taken as the ceiling for int32 add/mul/shift as well.
+# Published peaks of one H100 SXM: device memory 3.35 TB/s; 33.5e12
+# integer lane-instructions/s = 132 SMs x 4 sub-partitions x 32 lanes x
+# 1.98 GHz (one warp instruction per sub-partition and clock, the rate of
+# 67 TFLOP/s float32 counted in instructions). Integer adds reach it only
+# spread over two 16-lane pipes, the ALU (IADD3, LEA, IABS, SHF) and the
+# float32 pipe's integer half (IMAD, IMAD.IADD), as nvcc spreads K1's
+# (phase `satd35_build`); either pipe alone gives half.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT_OPS_S = 33.5e12
 
@@ -103,14 +109,21 @@ def satd_inputs(n, B, seed, device):
 
 
 def satd_bound_ms(n, B):
-    """Least time for one launch: the larger of bytes over the memory
-    rate and integer operations over the instruction rate."""
+    """Least time for one launch: the larger of bytes over the memory rate
+    and integer instructions over the issue rate. Per predicted sample 6 +
+    log2(k*k): two tap multiply-adds, the shift and the difference, one add
+    or subtract per element and butterfly stage, the absolute value and
+    the sum. Also the bound as first stated, which counted two
+    instructions per element and stage: (bound, bound_by, first bound)."""
     k = 4 if n == 4 else 8
     nbytes = B * (2 * (4 * n + 1) + n * n) * 4 + B * 35 * 4
-    ops = B * 35 * n * n * (4 + 2 * int(np.log2(k * k)))
+    stages = int(np.log2(k * k))
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_INT_OPS_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops, t_first = (B * 35 * n * n * per_sample / PEAK_INT_OPS_S * 1e3
+                      for per_sample in (6 + stages, 4 + 2 * stages))
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, t_first))
 
 
 def satd_build_report(log, so):
@@ -198,9 +211,9 @@ def check_kernel(device):
             r_u, r_f, orig = satd_inputs(n, b, 100 + n, device)
             ms = time_ms(lambda: intra_mm.satd_all_modes(r_u, r_f, orig, n),
                          20)
-            bound, by = satd_bound_ms(n, b)
+            bound, by, first = satd_bound_ms(n, b)
             rec[key] = {"B": b, "kernel_ms": ms, "bound_ms": bound,
-                        "bound_by": by}
+                        "bound_by": by, "bound_ms_first_stated": first}
             if key == "F1":
                 rec[key]["plain_ms"] = time_ms(
                     lambda: intra_mm.satd_all_modes_plain(r_u, r_f, orig, n),
@@ -544,7 +557,12 @@ def main():
         "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
         "bound_ms": tot("bound_ms"),
         "bound_by": "operations" if ops_bound else "bytes",
-        "library_ms": None, "per_n": per_n}, {
+        "bound_ms_first_stated": tot("bound_ms_first_stated"),
+        "library_ms": None, "per_n": per_n,
+        "registers_spills": {
+            n: {k: r.get(k) for k in ("registers", "spill_store_bytes",
+                                      "spill_load_bytes")}
+            for n, r in satd_usage.items()}}, {
         "name": "recon_frame", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/recon_frame.cu",
         "replaces": "hevc_tpu/pipeline/recon_pallas.py:443",

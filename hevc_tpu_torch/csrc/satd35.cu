@@ -49,19 +49,22 @@
 // by the wrapper).
 //
 // Bound on an H100 (per launch): bytes moved B*(2(4n+1) + n*n)*4 in and
-// B*35*4 out over 3.35 TB/s; integer operations about
-// B*35*n*n*(4 + 2*log2(k*k)) outside the tensor cores. At the encoder's
-// shapes the operation count is the larger of the two by an order of
-// magnitude, so the kernel is bound by operations: what the design does
-// about it is to keep every intermediate in registers, to read two taps
-// per angular sample at offsets fixed per row, and to compute the row's
-// offset and fraction once.
+// B*35*4 out over 3.35 TB/s; integer instructions B*35*n*n*(6 +
+// log2(k*k)) (per sample two tap multiply-adds, the shift, the difference,
+// one butterfly per stage, the absolute value and the sum) over 33.5e12
+// lane-instructions/s: a sub-partition issues one warp instruction per
+// clock, and the compiler spreads the adds over the ALU pipe (IADD3, LEA)
+// and the float32 pipe's integer half (IMAD, IMAD.IADD), 16 lanes each. At
+// the encoder's shapes the instruction count is the larger of the two by
+// an order of magnitude, so the kernel is bound by operations: what the
+// design does about it is to keep every intermediate in registers, to
+// read the taps at offsets fixed per row (neighbouring samples share
+// one), and to compute the row's offset and fraction once.
 //
 // The same source builds without nvcc as plain C++ (the threads of a block
 // become a loop before the one barrier, warps and lanes a loop after it),
 // which is how the CPU tests hold this body against the plain version.
 
-#include <stdint.h>
 #include <stdlib.h>
 
 #ifdef __CUDACC__
@@ -103,10 +106,15 @@ struct Shared {
     short em[NWARPS][EM * NODES];           // per warp: [k + N][node]
 };
 
-// Resident blocks per SM the compiler plans registers for.
+// Resident blocks per SM the compiler plans registers for. Measured side
+// by side on an H100 (1 to 8 blocks): at the benchmark's decide sub-batch
+// sizes 4 blocks (72 registers, about 100 bytes of spills at n = 16) beat
+// 3 (80, none) by 5% at n = 16 and 2% at n = 8; 6 or more spill
+// kilobytes and run 4x slower there. n = 4 takes 38-51 registers at any
+// budget up to 8 and is flat within 2%.
 template <int N>
 struct Budget {
-    static constexpr int BLOCKS = (N == 4) ? 6 : 3;
+    static constexpr int BLOCKS = (N == 4) ? 6 : 4;
 };
 
 // intra.ref_filter_flag for n = 4, 8, 16
