@@ -7,7 +7,7 @@ Builds the port's kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card at the shapes the
 encoder gives it (the 35-mode SATD kernel at its three 1080p batches, at
 the benchmark's decide sub-batches and, luma and chroma, at a ragged
-batch, with its registers, spills and SASS instruction mix; the
+batch, with the registers, spills and shared memory of both kernels; the
 reconstruction kernel on random legal decisions at 416x240 and on the
 encoder's own decisions at 1080p), drives the main paths with the trained
 ETH-CNN at QP 32 on 1080p frames — `AIEncoder.encode` frame by frame and
@@ -40,7 +40,7 @@ HM_DECODER = os.path.join(ROOT, "tools", "hm", "TAppDecoderStatic")
 # 67 TFLOP/s float32 counted in instructions). Integer adds reach it only
 # spread over two 16-lane pipes, the ALU (IADD3, LEA, IABS, SHF) and the
 # float32 pipe's integer half (IMAD, IMAD.IADD), as nvcc spreads K1's
-# (phase `satd35_build`); either pipe alone gives half.
+# (its SASS, read once by hand: PERF.md); either pipe alone gives half.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT_OPS_S = 33.5e12
 
@@ -53,15 +53,6 @@ RECON_LAUNCHES_1080P = CTUS_X_1080P + 2 * (CTUS_Y_1080P - 1)
 #: benchmark's decide sub-batches of 4 frames are 4 times these)
 SHAPES_1080P = {16: N_CTU_1080P * 16, 8: N_CTU_1080P * 64,
                 4: N_CTU_1080P * 256}
-#: the pipe that issues each opcode of K1's SASS: "alu" (16 lanes per SM
-#: sub-partition), "fma" (integer multiply-adds run on the float32 pipe's
-#: heavy half, 16 lanes), "lsu" (memory)
-SASS_PIPES = {
-    "alu": {"IADD3", "LOP3", "SHF", "ISETP", "IABS", "IMNMX", "SEL", "LEA",
-            "PRMT", "PLOP3", "BMSK", "SGXT", "FLO", "POPC", "VIMNMX"},
-    "fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"},
-    "lsu": {"LDS", "STS", "LDG", "STG", "LDL", "STL", "LD", "ST", "LDC"},
-}
 
 
 def say(obj):
@@ -108,43 +99,57 @@ def satd_inputs(n, B, seed, device):
     return r_u, intra.filter_refs(r_u).contiguous(), orig
 
 
+def satd_ops_per_node(n):
+    """Integer instructions one node needs over its 35 modes. Forming each
+    predicted sample and its difference from the original: an angular
+    sample with a fraction takes two tap multiply-adds and one fused shift
+    and difference (3), one whose row (column) has fraction 0 the
+    difference alone (1), DC the difference (1), planar a step of each of
+    its two ramps, their sum and the fused shift and difference (4). Then
+    per element one add or subtract for each of the log2(k*k) butterfly
+    stages, the absolute value, and half an add to accumulate (an IADD3
+    takes two absolute values)."""
+    from hevc_tpu_torch.ops.intra import INTRA_ANGLES
+    k = 4 if n == 4 else 8
+    pred = n * n * (4 + 1) + sum(
+        n * (3 if (j + 1) * INTRA_ANGLES[m] & 31 else 1)
+        for m in range(2, 35) for j in range(n))
+    return pred + 35 * n * n * (np.log2(k * k) + 1.5)
+
+
 def satd_bound_ms(n, B):
     """Least time for one launch: the larger of bytes over the memory rate
-    and integer instructions over the issue rate. Per predicted sample 6 +
-    log2(k*k): two tap multiply-adds, the shift and the difference, one add
-    or subtract per element and butterfly stage, the absolute value and
-    the sum. Also the bound as first stated, which counted two
-    instructions per element and stage: (bound, bound_by, first bound)."""
+    and integer instructions (`satd_ops_per_node`) over the issue rate.
+    Also the bound as first stated, which counted 4 + 2 log2(k*k)
+    instructions per sample (two per element and stage, the shift and the
+    difference apart): (bound, bound_by, first bound)."""
     k = 4 if n == 4 else 8
     nbytes = B * (2 * (4 * n + 1) + n * n) * 4 + B * 35 * 4
-    stages = int(np.log2(k * k))
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops, t_first = (B * 35 * n * n * per_sample / PEAK_INT_OPS_S * 1e3
-                      for per_sample in (6 + stages, 4 + 2 * stages))
+    t_ops = B * satd_ops_per_node(n) / PEAK_INT_OPS_S * 1e3
+    t_first = (B * 35 * n * n * (4 + 2 * np.log2(k * k))
+               / PEAK_INT_OPS_S * 1e3)
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
             max(t_bytes, t_first))
 
 
-def satd_build_report(log, so):
-    """Per instance of K1 (n = 4 / 8 / 16): registers, stack and spills
-    from the `nvcc -Xptxas -v` log of a build of the same source, and the
-    instruction mix of its SASS (`cuobjdump -sass`, static counts by
-    opcode and by the pipe that issues them; the listing is kept beside
-    the library as `<so>.sass`)."""
-    rep, fn = {}, None
-    inst = lambda name: (re.search(r"satd35_kernelILi(\d+)EE", name or "")
-                         or [None, None])[1]
+def ptxas_usage(log):
+    """{kernel function: registers, stack and spill bytes, shared memory}
+    from the output of an `nvcc -Xptxas -v` build; K1's instances are
+    named by their node size."""
+    usage, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$]+)", line)
         if m:
             fn = m.group(1)
+            m = re.search(r"satd35_kernelILi(\d+)EE", fn)
+            fn = f"satd35 n={m.group(1)}" if m else fn
             continue
-        n = inst(fn)
-        if n is None:
+        if fn is None:
             continue
-        r = rep.setdefault(f"n={n}", {})
+        r = usage.setdefault(fn, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -157,31 +162,7 @@ def satd_build_report(log, so):
         m = re.search(r"(\d+) bytes smem", line)
         if m:
             r["shared_bytes"] = int(m.group(1))
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                             "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    with open(so + ".sass", "w") as f:
-        f.write(sass)
-    fn = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = inst(m.group(1))
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                      r"([A-Z][A-Z0-9_.]*)", line)
-        if m and fn is not None:
-            op = m.group(1)
-            mix = rep.setdefault(f"n={fn}", {}).setdefault("sass", {})
-            mix[op] = mix.get(op, 0) + 1
-    for r in rep.values():
-        mix = r.get("sass", {})
-        r["by_pipe"] = {pipe: sum(c for op, c in mix.items()
-                                  if op.split(".")[0] in ops)
-                        for pipe, ops in SASS_PIPES.items()}
-        r["sass"] = dict(sorted(mix.items(), key=lambda kv: -kv[1]))
-    return rep
+    return usage
 
 
 def check_kernel(device):
@@ -354,28 +335,22 @@ def main():
         if os.path.exists(so):
             os.remove(so)
     t0 = time.perf_counter()
-    # K1 once more with `-Xptxas -v`, beside the other builds, for its
-    # registers, spills and SASS
-    satd_v = os.path.join(os.path.dirname(intra_mm._SO), "satd35_ptxas.so")
-    os.makedirs(os.path.dirname(satd_v), exist_ok=True)
-    ptxas = subprocess.Popen(
-        cuda_build.nvcc_command(intra_mm._CSRC, satd_v, ("-Xptxas", "-v")),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    cuda_build.build_all([(intra_mm._CSRC, intra_mm._SO, ()),
-                          recon_kernel.build_job()])
+    # `-Xptxas -v` only reports registers, spills and shared memory
+    src, so, extra = recon_kernel.build_job()
+    jobs = [(intra_mm._CSRC, intra_mm._SO, ("-Xptxas", "-v")),
+            (src, so, (*extra, "-Xptxas", "-v"))]
+    logs = cuda_build.build_all(jobs)
     intra_mm.load_kernel()
     recon_kernel.load_kernel()
     t_kernel = time.perf_counter() - t0
-    ptxas_log, _ = ptxas.communicate()
-    if ptxas.returncode != 0:
-        fail(f"nvcc -Xptxas -v of satd35.cu failed:\n{ptxas_log}")
     native.load()
     say({"phase": "build", "kernels_nvcc_s": t_kernel,
          "native_entropy_gxx_s": time.perf_counter() - t0 - t_kernel,
-         "commands": [" ".join(intra_mm.nvcc_command()),
-                      " ".join(recon_kernel.nvcc_command())]})
-    satd_usage = satd_build_report(ptxas_log, satd_v)
-    say({"phase": "satd35_build", "per_instance": satd_usage})
+         "commands": [" ".join(cuda_build.nvcc_command(*job))
+                      for job in jobs]})
+    usage = {fn: r for log in logs.values()
+             for fn, r in ptxas_usage(log).items()}
+    say({"phase": "kernel_resources", "per_function": usage})
 
     # 3. each kernel against its plain version on the card
     per_n, max_err = check_kernel(device)
@@ -545,6 +520,10 @@ def main():
     ops_bound = all(v["bound_by"] == "operations" for v in per_n.values())
     by_path = lambda name: {"AIEncoder.encode": ai_launches[name],
                             "FrameParallelAI.encode": fp_launches[name]}
+    regs = lambda k1: {
+        fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
+                                   "spill_load_bytes")}
+        for fn, r in usage.items() if fn.startswith("satd35") == k1}
     say({"kernels": [{
         "name": "satd35", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/satd35.cu",
@@ -559,10 +538,7 @@ def main():
         "bound_by": "operations" if ops_bound else "bytes",
         "bound_ms_first_stated": tot("bound_ms_first_stated"),
         "library_ms": None, "per_n": per_n,
-        "registers_spills": {
-            n: {k: r.get(k) for k in ("registers", "spill_store_bytes",
-                                      "spill_load_bytes")}
-            for n, r in satd_usage.items()}}, {
+        "registers_spills": regs(True)}, {
         "name": "recon_frame", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/recon_frame.cu",
         "replaces": "hevc_tpu/pipeline/recon_pallas.py:443",
@@ -575,7 +551,8 @@ def main():
         "ms": k2["F1"]["ms"], "luma_ms": k2["F1"]["luma_ms"],
         "chroma_ms": k2["F1"]["chroma_ms"], "plain_ms": plain_ms,
         "bound_ms": k2["F1"]["bound_ms"], "bound_by": k2["F1"]["bound_by"],
-        "library_ms": None, "tu_step_us": tu_us, "per_frame_batch": k2}]})
+        "library_ms": None, "tu_step_us": tu_us, "per_frame_batch": k2,
+        "registers_spills": regs(False)}]})
     print(nvidia_smi_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -49,9 +49,11 @@
 // by the wrapper).
 //
 // Bound on an H100 (per launch): bytes moved B*(2(4n+1) + n*n)*4 in and
-// B*35*4 out over 3.35 TB/s; integer instructions B*35*n*n*(6 +
-// log2(k*k)) (per sample two tap multiply-adds, the shift, the difference,
-// one butterfly per stage, the absolute value and the sum) over 33.5e12
+// B*35*4 out over 3.35 TB/s; integer instructions, counted per mode (an
+// angular sample with a fraction: two tap multiply-adds and one fused
+// shift and difference; without one, or DC: the difference; planar: 4),
+// plus per sample one add per butterfly stage (log2(k*k)), the absolute
+// value and half an add (chip_smoke.satd_ops_per_node), over 33.5e12
 // lane-instructions/s: a sub-partition issues one warp instruction per
 // clock, and the compiler spreads the adds over the ALU pipe (IADD3, LEA)
 // and the float32 pipe's integer half (IMAD, IMAD.IADD), 16 lanes each. At

@@ -2,7 +2,9 @@
 
 Each kernel source has a plain C entry point and is loaded with `ctypes`;
 the libraries go into the git-ignored `build/` directory at first use and
-are rebuilt when the source is newer. Nothing here runs at import.
+are rebuilt when the source is newer. The same sources also build as plain
+C++ for the CPU with `g++` (`host_build`), which the tests use to hold a
+kernel's body against its plain version. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ def nvcc_command(src, out, extra=()):
             os.path.abspath(src)]
 
 
+def host_build(src, out, extra=()):
+    """Build one kernel source as plain C++ for the CPU (the threads of a
+    block become a loop) into the shared library `out`; returns `out`.
+    Nothing on an encoder's path uses such a library."""
+    subprocess.run(["g++", "-O2", "-std=c++17", *extra, "-shared", "-fPIC",
+                    "-x", "c++", os.path.abspath(src), "-o", out],
+                   check=True, capture_output=True, text=True)
+    return out
+
+
 def _stale(src, so):
     return (not os.path.exists(so)
             or os.path.getmtime(so) < os.path.getmtime(src))
@@ -31,8 +43,10 @@ def _stale(src, so):
 
 def build_all(jobs):
     """Build every stale library of `jobs` = [(src, so, extra flags)], all
-    compilers started together. Raises with the compiler's output if one
-    fails."""
+    compilers started together. Returns {so: compiler output} of the
+    libraries it built (with `-Xptxas -v` among the flags, the registers,
+    spills and shared memory of each kernel). Raises with the compiler's
+    output if one fails."""
     running = []
     for src, so, extra in jobs:
         if not _stale(src, so):
@@ -43,7 +57,7 @@ def build_all(jobs):
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((proc, src, so, tmp))
-    failed = []
+    failed, logs = [], {}
     for proc, src, so, tmp in running:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -52,8 +66,10 @@ def build_all(jobs):
         else:
             # atomic: another process never loads a half-written file
             os.replace(tmp, so)
+            logs[so] = log
     if failed:
         raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def build(src, so, extra=()):

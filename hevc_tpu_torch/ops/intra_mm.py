@@ -23,7 +23,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import subprocess
 
 import numpy as np
 import torch
@@ -177,11 +176,6 @@ _SO = os.path.join(BUILD_DIR, "libsatd35.so")
 _lib = None
 
 
-def nvcc_command(src=_CSRC, out=_SO):
-    """The command that builds the kernel's shared library."""
-    return cuda_build.nvcc_command(src, out)
-
-
 def _bind(lib):
     lib.satd35_launch.restype = ctypes.c_int
     lib.satd35_launch.argtypes = [ctypes.c_void_p] * 4 + [
@@ -198,20 +192,11 @@ def load_kernel():
     return _lib
 
 
-def host_build_command(out, src=_CSRC):
-    """The command that builds the kernel's source as plain C++ for the
-    CPU (the threads of a block become a loop): what the CPU tests run to
-    hold the kernel's body against the plain version. Nothing on an
-    encoder's path uses that library."""
-    return ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
-            os.path.abspath(src), "-o", out]
-
-
 def load_host_build(out):
-    """Build the source for the CPU into the file `out` and bind it."""
-    subprocess.run(host_build_command(out), check=True, capture_output=True,
-                   text=True)
-    return _bind(ctypes.CDLL(out))
+    """Build the kernel's source for the CPU into the file `out` (what the
+    CPU tests run to hold the kernel's body against the plain version) and
+    bind it."""
+    return _bind(ctypes.CDLL(cuda_build.host_build(_CSRC, out)))
 
 
 def run(lib, r_u, r_f, orig, n, *, component="luma", bit_depth=8,

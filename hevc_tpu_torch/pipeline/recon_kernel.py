@@ -25,7 +25,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import subprocess
 
 import numpy as np
 import torch
@@ -144,11 +143,6 @@ def _tables_t(device):
 # Build and launch
 # ---------------------------------------------------------------------------
 
-def nvcc_command(src=_CSRC, out=_SO):
-    """The command that builds the kernel's shared library."""
-    return cuda_build.nvcc_command(src, out, _NVCC_FLAGS)
-
-
 def build_job():
     """(source, library, extra flags) for `cuda_build.build_all`."""
     return _CSRC, _SO, _NVCC_FLAGS
@@ -172,20 +166,13 @@ def load_kernel():
     return _lib
 
 
-def host_build_command(out, src=_CSRC):
-    """The command that builds the kernel's source as plain C++ for the
-    CPU (the threads of a block become a loop): what the CPU tests run to
-    hold the kernel's body against the plain version. Nothing on an
-    encoder's path uses that library."""
-    return ["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
-            "-fPIC", "-x", "c++", os.path.abspath(src), "-o", out]
-
-
 def load_host_build(out):
-    """Build the source for the CPU into the file `out` and bind it."""
-    subprocess.run(host_build_command(out), check=True, capture_output=True,
-                   text=True)
-    return _bind(ctypes.CDLL(out))
+    """Build the kernel's source for the CPU into the file `out` (what the
+    CPU tests run to hold the kernel's body against the plain version) and
+    bind it. The RDOQ costs feed `<=` comparisons: no contraction to fused
+    multiply-adds, as on the card."""
+    return _bind(ctypes.CDLL(cuda_build.host_build(
+        _CSRC, out, ("-ffp-contract=off",))))
 
 
 def _check(name, t, dtype, shape, device):
