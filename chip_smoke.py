@@ -13,10 +13,13 @@ encoder's own decisions at 1080p), drives the main paths with the trained
 ETH-CNN at QP 32 on 1080p frames — `AIEncoder.encode` frame by frame and
 the frame-batched `FrameParallelAI.encode`, whose streams must be the same
 bytes — runs the 1080p benchmark at a reduced depth, checks the stream
-with the HM reference decoder, and prints one JSON object per phase. The
-last line is `{"ok": true, "device": {...}}`; any failed phase ends the
-run with a non-zero exit code and no such line. Without a CUDA device it
-fails at once.
+with the HM reference decoder, drives `AIEncoder.encode` with deblocking
+and SAO on at 1080p (times of the filter stage per frame, its device
+kernels, HM decode) and under a `RateController` at 416x240 (the card's
+streams and QPs equal to the CPU's), and prints one JSON object per
+phase. The last line is `{"ok": true, "device": {...}}`; any failed phase
+ends the run with a non-zero exit code and no such line. Without a CUDA
+device it fails at once.
 """
 
 import json
@@ -272,19 +275,26 @@ def recon_kernel_times(args, kw, reps=5):
     return out
 
 
-def encode(frames, cnn, w, h, device=None):
+def encode(frames, cnn, w, h, device=None, rate_control=None, **cfg_kw):
+    """AIEncoder.encode at QP 32 (cfg_kw: deblock, sao). Returns (stream,
+    recons, stats, wall s); the encoder's per-picture QPs go into stats
+    as `frame_qps`."""
     from hevc_tpu_torch.entropy.headers import EncoderConfig
     from hevc_tpu_torch.pipeline.ai import AIEncoder
-    enc = AIEncoder(EncoderConfig(w, h, qp=32), cnn=cnn, device=device)
+    enc = AIEncoder(EncoderConfig(w, h, qp=32, **cfg_kw), cnn=cnn,
+                    device=device)
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames, with_hash_sei=True)
+    stream, recons, stats = enc.encode(frames, with_hash_sei=True,
+                                       rate_control=rate_control)
     torch.cuda.synchronize()
-    return stream, recons, stats, time.perf_counter() - t0
+    return (stream, recons, {**stats, "frame_qps": enc.frame_qps},
+            time.perf_counter() - t0)
 
 
-def hm_check(stream, recons, w, h):
+def hm_check(stream, recons, w, h, of):
     """Decode with the HM reference decoder: rc 0, MD5 SEI matches,
-    decoded YUV equals the encoder's reconstructions."""
+    decoded YUV equals the encoder's reconstructions. A decoder that
+    cannot run fails the smoke like a mismatch. `of` names the stream."""
     from hevc_tpu_torch.core.yuv import read_yuv420
     with tempfile.TemporaryDirectory() as tmp:
         bs, rec = os.path.join(tmp, "str.bin"), os.path.join(tmp, "rec.yuv")
@@ -294,9 +304,7 @@ def hm_check(stream, recons, w, h):
             proc = subprocess.run([HM_DECODER, "-b", bs, "-o", rec],
                                   capture_output=True, text=True, timeout=300)
         except OSError as e:
-            say({"phase": "hm_decode", "ran": False,
-                 "reason": f"decoder binary cannot be executed here: {e}"})
-            return
+            fail(f"the HM decoder cannot be executed: {e}")
         log = proc.stdout + proc.stderr
         if proc.returncode != 0 or "mismatch" in log.lower():
             fail(f"HM decode rc={proc.returncode}:\n{log[-2000:]}")
@@ -307,8 +315,200 @@ def hm_check(stream, recons, w, h):
             for a, b in ((d.y, r.y), (d.cb, r.cb), (d.cr, r.cr)):
                 if not np.array_equal(a, b):
                     fail("HM-decoded picture differs from the encoder's recon")
-    say({"phase": "hm_decode", "ran": True, "rc": 0, "md5_sei": "match",
-         "frames": len(recons), "decoded_equals_recon": True})
+    say({"phase": "hm_decode", "of": of, "size": f"{w}x{h}", "rc": 0,
+         "md5_sei": "match", "frames": len(recons),
+         "decoded_equals_recon": True})
+
+
+def filter_stage(planes, depth8, origs, qp, times):
+    """The encoder's filter stage (`AIEncoder.reconstruct` after K2) on
+    the device planes of one frame: deblocking, SAO statistics (ending in
+    their one copy to the host), the host decision and the apply, each
+    between two synchronises; their milliseconds go into `times`.
+    Returns the filtered planes and the SAO parameters."""
+    from hevc_tpu_torch.ops import deblock, sao
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    y, cb, cr = deblock.deblock_frame(*planes, depth8, qp)
+    mark()
+    stats = sao.frame_stats(*origs, y, cb, cr)
+    mark()
+    params = sao.decide_frame(stats, qp)
+    mark()
+    out = sao.apply_frame(y, cb, cr, params)
+    mark()
+    for i, key in enumerate(("deblock_ms", "sao_stats_ms", "sao_decide_ms",
+                             "sao_apply_ms")):
+        times[key] = (marks[i + 1] - marks[i]) * 1e3
+    times["total_ms"] = (marks[-1] - marks[0]) * 1e3
+    return out, params
+
+
+def device_kernels(fn):
+    """(kernels, copies and fills, device-busy ms of both) the device ran
+    for fn(), from a `torch.profiler` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = busy_us = 0
+    for e in p.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+        dev_us = getattr(e, "self_device_time_total", None)
+        busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+    return kernels, copies, busy_us / 1e3
+
+
+def check_filters_1080p(frames, cnn, device, reps=5):
+    """Deblocking and SAO on at 1080p through `AIEncoder.encode` (both
+    kernels counted, HM decode), the same frames unfiltered beside it,
+    and the filter stage of each frame timed part by part after a
+    warm-up (the median of `reps` runs per part: the host's clock moves
+    between runs). Returns the kernels' launches on this path."""
+    from hevc_tpu_torch.core.yuv import pad_frame, psnr
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.ops import intra_mm
+    from hevc_tpu_torch.pipeline import recon, recon_kernel
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
+    cfg = EncoderConfig(1920, 1080, qp=32, deblock=True, sao=True)
+    s_unf, r_unf, _, _ = encode(frames, cnn, 1920, 1080)
+    torch.cuda.synchronize()
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+    s_f, r_f, st_f, wall = encode(frames, cnn, 1920, 1080, deblock=True,
+                                  sao=True)
+    launches = {"satd35": intra_mm.launches,
+                "recon_frame": recon_kernel.launches}
+    plain_batches = recon.batches
+    if (launches["satd35"] != 3 * len(frames)
+            or launches["recon_frame"] != RECON_LAUNCHES_1080P * len(frames)
+            or plain_batches != 0):
+        fail(f"filters_1080p: launches {launches}, plain recon batches "
+             f"{plain_batches}")
+    hm_check(s_f, r_f, 1920, 1080, "filters_1080p")
+
+    enc = AIEncoder(cfg, cnn=cnn)
+    per_frame, types = [], np.zeros((2, 3), np.int64)
+    for i, f in enumerate(frames):
+        pf = pad_frame(f, cfg.pad_width, cfg.pad_height)
+        d8, _, m4, nxn = enc.decide_frame_full(pf.y, None, pf.cb, pf.cr)
+        planes = recon.encode_frame_planes_batched(
+            *(np.asarray(a)[None] for a in (pf.y, pf.cb, pf.cr, d8, m4, nxn)),
+            qp=32, pad_w=cfg.pad_width, pad_h=cfg.pad_height, rdoq=True)
+        stage_args = ([p[0] for p in planes[:3]],
+                      torch.as_tensor(d8, device=device),
+                      [torch.as_tensor(a, device=device)
+                       for a in (pf.y, pf.cb, pf.cr)], 32)
+        if i == 0:
+            filter_stage(*stage_args, {})                  # warm-up
+        runs = [{} for _ in range(reps)]
+        for times in runs:
+            out, params = filter_stage(*stage_args, times)
+        per_frame.append({k: float(np.median([t[k] for t in runs]))
+                          for k in runs[0]})
+        got = [p.to(torch.uint8).cpu().numpy() for p in out]
+        want = (r_f[i].y, r_f[i].cb, r_f[i].cr)
+        if not all(np.array_equal(g[:x.shape[0], :x.shape[1]], x)
+                   for g, x in zip(got, want)):
+            fail("filters_1080p: the timed filter stage gives another picture "
+                 "than AIEncoder.encode returned")
+        for c in (0, 1):                               # luma, chroma
+            types[c] += np.bincount(params.type_idx[c], minlength=3)
+    kernels, copies, busy_ms = device_kernels(
+        lambda: filter_stage(*stage_args, {}))
+    if kernels == 0:
+        fail("filters_1080p: the profiler saw no device kernel in the "
+             "filter stage")
+    mean = {k: float(np.mean([t[k] for t in per_frame]))
+            for k in per_frame[0]}
+    psnr_of = lambda rs: float(np.mean([psnr(r.y, f.y)
+                                        for r, f in zip(rs, frames)]))
+    share = lambda c: dict(zip(("none", "band", "edge"),
+                               (types[c] / types[c].sum()).tolist()))
+    say({"phase": "filters_1080p", "frames": len(frames), "qp": 32,
+         "deblock": True, "sao": True, "bytes": len(s_f),
+         "psnr_y": psnr_of(r_f), "unfiltered_bytes": len(s_unf),
+         "unfiltered_psnr_y": psnr_of(r_unf), "wall_s": wall,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"],
+         "plain_recon_batches": plain_batches, **st_f,
+         "filter_stage_runs_per_frame": reps,
+         "filter_stage_ms_per_frame": per_frame,
+         "filter_stage_ms_mean": mean,
+         "filter_stage_device_kernels": kernels,
+         "filter_stage_device_busy_ms": busy_ms,
+         "filter_stage_copies_and_fills": copies,
+         "sao_ctu_type_share": {"luma": share(0), "chroma": share(1)}})
+    return launches
+
+
+def check_filters_small(small, cnn, cnn_cpu):
+    """Deblocking and SAO on at 416x240: the card's stream equals the one
+    made on the CPU (a different SAO decision would show here)."""
+    s_card, _, _, _ = encode(small, cnn, 416, 240, deblock=True, sao=True)
+    s_cpu, _, _, _ = encode(small, cnn_cpu, 416, 240, device="cpu",
+                            deblock=True, sao=True)
+    if s_card != s_cpu:
+        fail("filters_card_vs_cpu_stream: the card's filtered stream differs "
+             "from the CPU's")
+    say({"phase": "filters_card_vs_cpu_stream", "size": "416x240",
+         "frames": len(small), "deblock": True, "sao": True,
+         "bytes": len(s_card), "identical": True})
+
+
+def check_rate_control(cnn, cnn_cpu):
+    """Four 416x240 frames (deblocking and SAO on) under a RateController
+    whose target moves the QP: the card's stream and per-picture QPs equal
+    the CPU's, and HM decodes the stream. Returns the kernels' launches
+    on this path."""
+    from hevc_tpu_torch.ops import intra_mm
+    from hevc_tpu_torch.pipeline import bench_hooks, ratectrl, recon
+    from hevc_tpu_torch.pipeline import recon_kernel
+    frames = bench_hooks.synth_structured(4, 7, 416, 240)
+    rc_kw = dict(target_bps=1_000_000, fps=30, width=416, height=240,
+                 n_frames=len(frames), init_qp=32)
+    torch.cuda.synchronize()
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+    s_card, r_card, st, wall = encode(
+        frames, cnn, 416, 240, rate_control=ratectrl.RateController(**rc_kw),
+        deblock=True, sao=True)
+    launches = {"satd35": intra_mm.launches,
+                "recon_frame": recon_kernel.launches}
+    if (launches["satd35"] != 3 * len(frames)
+            or launches["recon_frame"] != 13 * len(frames)
+            or recon.batches != 0):
+        fail(f"rate_control: launches {launches}, plain recon batches "
+             f"{recon.batches}")
+    s_cpu, _, st_cpu, _ = encode(
+        frames, cnn_cpu, 416, 240, device="cpu",
+        rate_control=ratectrl.RateController(**rc_kw), deblock=True,
+        sao=True)
+    qps = st["frame_qps"]
+    if len(set(qps)) < 2:
+        fail(f"rate_control: the QP did not move ({qps})")
+    if qps != st_cpu["frame_qps"] or s_card != s_cpu:
+        fail(f"rate_control: card QPs {qps} / CPU QPs {st_cpu['frame_qps']}, "
+             f"streams equal: {s_card == s_cpu}")
+    hm_check(s_card, r_card, 416, 240, "rate_control")
+    say({"phase": "rate_control", "size": "416x240", "frames": len(frames),
+         "target_bps": rc_kw["target_bps"], "fps": rc_kw["fps"],
+         "frame_qps": qps, "qps_equal_to_cpu": True,
+         "stream_identical_to_cpu": True, "bytes": len(s_card),
+         "wall_s": wall, "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
 
 
 def main():
@@ -502,24 +702,34 @@ def main():
          "swapped": ["satd35", "recon_frame"]})
     # ... and against the same encoder run on the CPU (asked for explicitly):
     # the float RD costs must not tip a decision between host and card
-    s_cpu, _, _, _ = encode(small, eth_cnn.load_npz(WEIGHTS, device="cpu"),
-                            416, 240, device="cpu")
+    cnn_cpu = eth_cnn.load_npz(WEIGHTS, device="cpu")
+    s_cpu, _, _, _ = encode(small, cnn_cpu, 416, 240, device="cpu")
     if s_kernel != s_cpu:
         fail("416x240: the card's stream differs from the CPU's")
     say({"phase": "card_vs_cpu_stream", "size": "416x240", "frames": 2,
          "identical": True})
 
     # 9. conformance: the stream both main paths made
-    hm_check(stream, recons, 1920, 1080)
+    hm_check(stream, recons, 1920, 1080, "encode_1080p")
 
-    # 10. the kernels of the main paths. satd35: times are sums over the
+    # 10. the in-loop filters: 1080p through AIEncoder.encode with
+    # deblocking and SAO (the first two frames), then card vs CPU at
+    # 416x240; 11. picture-level rate control, card vs CPU, HM decode
+    filt_launches = check_filters_1080p(frames[:2], cnn, device)
+    check_filters_small(small, cnn, cnn_cpu)
+    rc_launches = check_rate_control(cnn, cnn_cpu)
+
+    # 12. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
     tot = lambda key: sum(v[key] for v in per_n.values())
     ops_bound = all(v["bound_by"] == "operations" for v in per_n.values())
-    by_path = lambda name: {"AIEncoder.encode": ai_launches[name],
-                            "FrameParallelAI.encode": fp_launches[name]}
+    by_path = lambda name: {
+        "AIEncoder.encode": ai_launches[name],
+        "FrameParallelAI.encode": fp_launches[name],
+        "AIEncoder.encode deblock+sao 1080p": filt_launches[name],
+        "AIEncoder.encode rate_control 416x240": rc_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

@@ -10,9 +10,11 @@ Subpackages
 core      : YUV frames, CTU tiling, z-order helpers (host, NumPy)
 entropy   : CABAC engine, context models, syntax coding, NAL/Annex-B (host)
 native    : C++ slice-data CABAC coder, loaded with ctypes
-ops       : integer DCT/DST, quant, RDOQ, intra prediction, SATD, bit model
+ops       : integer DCT/DST, quant, RDOQ, intra prediction, SATD, bit model,
+            in-loop filters (deblocking, SAO)
 models    : ETH-CNN, HCPM gating
-pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder)
+pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder),
+            picture-level rate control
 csrc      : CUDA sources of the kernels
 
 The float RD costs and the CNN probabilities feed hard comparisons, so

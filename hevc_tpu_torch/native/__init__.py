@@ -62,13 +62,23 @@ def _ptr(a, t=ctypes.c_int32):
 _NULL = _I32P()
 
 
+def _sao_ptrs(sao):
+    """(keepalive, 4 pointers) for an ops/sao.SaoParams (or None)."""
+    if sao is None:
+        return None, (_NULL, _NULL, _NULL, _NULL)
+    t = _as_i32(sao.type_idx)
+    e = _as_i32(sao.eo_class)
+    b = _as_i32(sao.band_pos)
+    o = _as_i32(sao.offsets)
+    return (t, e, b, o), (_ptr(t), _ptr(e), _ptr(b), _ptr(o))
+
+
 def encode_slice_data(depth8, modes8, coef_y, coef_cb, coef_cr,
                       pad_w: int, pad_h: int, qp: int,
-                      modes4=None, nxn8=None) -> bytes:
+                      modes4=None, nxn8=None, sao=None) -> bytes:
     """CABAC-encode the slice data; returns byte-aligned RBSP bytes.
     modes4/nxn8: optional intra-NxN decisions (None = all 2Nx2N).
-    The coder's four SAO parameter pointers are passed as NULL (no SAO
-    syntax) until the in-loop filters are ported."""
+    sao: optional ops/sao.SaoParams coded per CTU (7.3.8.3)."""
     lib = load()
     d8, m8 = _as_i32(depth8), _as_i32(modes8)
     cy, cb, cr = _as_i32(coef_y), _as_i32(coef_cb), _as_i32(coef_cr)
@@ -76,12 +86,13 @@ def encode_slice_data(depth8, modes8, coef_y, coef_cb, coef_cr,
     out = np.empty(cap, np.uint8)
     m4 = _as_i32(modes4) if modes4 is not None else None
     nx = _as_i32(nxn8) if nxn8 is not None else None
+    _keep, sp = _sao_ptrs(sao)
     n = lib.hevc_encode_slice(_ptr(d8), _ptr(m8), _ptr(cy), _ptr(cb),
                               _ptr(cr), pad_w, pad_h, qp,
                               _ptr(out, ctypes.c_uint8), cap,
                               _ptr(m4) if m4 is not None else _NULL,
                               _ptr(nx) if nx is not None else _NULL,
-                              _NULL, _NULL, _NULL, _NULL)
+                              *sp)
     if n < 0:
         raise RuntimeError("hevc_encode_slice failed (buffer too small?)")
     return out[:n].tobytes()

@@ -68,8 +68,15 @@ class FrameParallelAI:
         if recon_backend != "auto":
             raise ValueError(f"unknown recon_backend {recon_backend!r}")
         if cfg.deblock or cfg.sao:
+            # the reference FrameParallelAI writes the filter flags into
+            # the parameter sets without filtering or coding SAO
+            # parameters (hevc_tpu/parallel/frames.py:417-419), so there
+            # is no reference to hold a filter step here to
             raise NotImplementedError(
-                "in-loop deblocking and SAO are not ported yet")
+                "FrameParallelAI does not run deblocking or SAO: the "
+                "reference FrameParallelAI signals the filters without "
+                "applying them, so no filtered path is ported here; use "
+                "AIEncoder for filtered encodes")
         if getattr(cfg, "cu_qp_delta", False):
             raise NotImplementedError("per-CTU QP is not ported yet")
         self.cfg = cfg

@@ -1,9 +1,11 @@
-"""All-Intra encoder pipeline: ETH-CNN HCPM -> search -> coding -> CABAC.
+"""All-Intra encoder pipeline: ETH-CNN HCPM -> search -> coding ->
+in-loop filters -> CABAC.
 
-The predictor, the partition search (with the 35-mode SATD kernel) and
-the normative wavefront reconstruction (pipeline/recon.py: the
-reconstruction kernel on the card) run on the device as tensors; CABAC
-packs on the host (native C++ coder).
+The predictor, the partition search (with the 35-mode SATD kernel), the
+normative wavefront reconstruction (pipeline/recon.py: the
+reconstruction kernel on the card) and the optional deblocking and SAO
+(ops/deblock.py, ops/sao.py) run on the device as tensors; the SAO
+parameter decision and CABAC run on the host (native C++ coder).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..core.yuv import Frame, crop_frame, extract_ctus, pad_frame
 from ..entropy import headers
 from ..entropy.bitstream import NAL_IDR_W_RADL, nal_unit
 from ..models import eth_cnn, hcpm
+from ..ops import deblock, sao
 from . import golden, recon, search
 
 
@@ -30,9 +33,6 @@ class AIEncoder:
         """cnn: an `eth_cnn.EthCnn` (e.g. `eth_cnn.load_npz(path)`), or
         None for the ungated full search. device=None means the card; with
         no card that raises (pass device="cpu" to run on the CPU)."""
-        if cfg.deblock or cfg.sao:
-            raise NotImplementedError(
-                "in-loop deblocking and SAO are not ported yet")
         if getattr(cfg, "cu_qp_delta", False):
             raise NotImplementedError("per-CTU QP is not ported yet")
         self.cfg = cfg
@@ -117,8 +117,11 @@ class AIEncoder:
         nxn = grid(res.nxn8, 8).astype(bool)
         return d, m, m4, nxn
 
-    def encode(self, frames, with_hash_sei: bool = True):
-        """Encode a sequence; returns (annexb bytes, recons, stats)."""
+    def encode(self, frames, with_hash_sei: bool = True,
+               rate_control=None):
+        """Encode a sequence; returns (annexb bytes, recons, stats).
+        rate_control: optional pipeline/ratectrl.RateController — picks
+        a per-picture QP and is updated with actual bits."""
         cfg = self.cfg
         chunks = [headers.write_vps(cfg), headers.write_sps(cfg),
                   headers.write_pps(cfg)]
@@ -127,7 +130,7 @@ class AIEncoder:
         self.frame_qps = []  # actual per-picture QPs
         for frame in frames:
             pf = pad_frame(frame, cfg.pad_width, cfg.pad_height)
-            qp = cfg.qp
+            qp = rate_control.pre_frame() if rate_control else cfg.qp
             self.frame_qps.append(qp)
             t0 = time.perf_counter()
             depth8, modes8, modes4, nxn8 = self.decide_frame_full(
@@ -137,6 +140,8 @@ class AIEncoder:
                                               modes4=modes4, nxn8=nxn8)
             t2 = time.perf_counter()
             chunks.append(self._entropy_encode(decisions, qp))
+            if rate_control:
+                rate_control.post_frame(8 * len(chunks[-1]))
             if with_hash_sei:
                 tid, hs = golden.pic_hashes(rec, cfg.hash_type)
                 chunks.append(headers.write_hash_sei(*hs, hash_type=tid))
@@ -156,9 +161,13 @@ class AIEncoder:
                     nxn8=None):
         """Normative reconstruction + coefficients: a frame batch of one
         through `recon.encode_frame_planes_batched` (the reconstruction
-        kernel on the card, the plain version on the CPU).
+        kernel on the card, the plain version on the CPU), then, as the
+        config asks, deblocking and SAO on the device (a pure post-pass:
+        intra prediction used the unfiltered samples). Only the final
+        planes go to the host.
         modes4/nxn8: NxN decisions; None = all CUs 2Nx2N.
-        Returns (decisions dict of host arrays, recon Frame)."""
+        Returns (decisions dict of host arrays, recon Frame); with SAO
+        on, decisions["sao"] holds the `sao.SaoParams`."""
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
         if modes4 is None:
@@ -170,11 +179,20 @@ class AIEncoder:
                                             modes4, nxn8)),
             qp=qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
             rdoq=cfg.rdoq, device=self.device)
-        host = [p[0].cpu().numpy() for p in planes]   # waits for the device
+        y, cb, cr = (p[0] for p in planes[:3])
         decisions = dict(depth8=depth8, modes8=modes8, modes4=modes4,
-                         nxn8=nxn8, coef_y=host[3], coef_cb=host[4],
-                         coef_cr=host[5])
-        rec = Frame(host[0], host[1], host[2])
+                         nxn8=nxn8)
+        if cfg.deblock:
+            y, cb, cr = deblock.deblock_frame(y, cb, cr, self._t(depth8), qp)
+        if cfg.sao:
+            params = sao.estimate_frame(self._t(pf.y), self._t(pf.cb),
+                                        self._t(pf.cr), y, cb, cr, qp)
+            y, cb, cr = sao.apply_frame(y, cb, cr, params)
+            decisions["sao"] = params
+        # to the host (waits for the device)
+        rec = Frame(*(p.to(torch.uint8).cpu().numpy() for p in (y, cb, cr)))
+        decisions.update(zip(("coef_y", "coef_cb", "coef_cr"),
+                             (p[0].cpu().numpy() for p in planes[3:])))
         return decisions, rec
 
 
@@ -189,5 +207,6 @@ def entropy_encode_slice(cfg, decisions, qp=None) -> bytes:
         decisions["depth8"], decisions["modes8"],
         decisions["coef_y"], decisions["coef_cb"],
         decisions["coef_cr"], cfg.pad_width, cfg.pad_height,
-        qp, modes4=decisions.get("modes4"), nxn8=decisions.get("nxn8"))
+        qp, modes4=decisions.get("modes4"), nxn8=decisions.get("nxn8"),
+        sao=decisions.get("sao"))
     return nal_unit(NAL_IDR_W_RADL, bw.get_bytes() + data)

@@ -159,9 +159,11 @@ def test_unported_options_raise(what):
         with pytest.raises(NotImplementedError):
             t_frames.ChainParallelLDP(cfg)
     elif what == "deblock":
-        with pytest.raises(NotImplementedError):
-            FrameParallelAI(t_headers.EncoderConfig(64, 64, deblock=True),
-                            device="cpu")
+        for kw in (dict(deblock=True), dict(sao=True)):
+            with pytest.raises(NotImplementedError,
+                               match="signals the filters"):
+                FrameParallelAI(t_headers.EncoderConfig(64, 64, **kw),
+                                device="cpu")
     else:
         with pytest.raises(ValueError):
             FrameParallelAI(cfg, recon_backend="xla", device="cpu")

@@ -14,6 +14,7 @@ import hevc_tpu.entropy.headers as j_headers
 import hevc_tpu.entropy.scan as j_scan
 import hevc_tpu.native as j_native
 import hevc_tpu.pipeline.golden as j_golden
+import hevc_tpu.pipeline.ratectrl as j_ratectrl
 from hevc_tpu.entropy.slice_enc import SliceEncoder as JSliceEncoder
 import hevc_tpu_torch.core.yuv as t_yuv
 import hevc_tpu_torch.core.zorder as t_zorder
@@ -21,6 +22,8 @@ import hevc_tpu_torch.entropy.headers as t_headers
 import hevc_tpu_torch.entropy.scan as t_scan
 import hevc_tpu_torch.native as t_native
 import hevc_tpu_torch.pipeline.golden as t_golden
+import hevc_tpu_torch.pipeline.ratectrl as t_ratectrl
+from hevc_tpu_torch.ops.sao import SaoParams
 from hevc_tpu_torch.entropy.slice_enc import SliceEncoder as TSliceEncoder
 
 from tests.test_e2e_bitstream import legalize_depth, synth_frame
@@ -93,6 +96,55 @@ def _check_native_cabac():
         os.path.join("hevc_tpu_torch", "build"))
 
 
+def _check_native_cabac_sao():
+    """One SaoParams with all three types, merge candidates (equal
+    neighbours) and signed offsets: the same slice bytes from both native
+    coders, and a different stream than without SAO."""
+    d = _decisions(seed=5)
+    B = (W // 64) * (H // 64)
+    rng = np.random.RandomState(6)
+    t = np.array([[2, 2], [1, 0]], np.int32)
+    sao = SaoParams(
+        type_idx=np.concatenate([t, t[1:]]),
+        eo_class=rng.randint(0, 4, (3, B)).astype(np.int32),
+        band_pos=rng.randint(0, 32, (3, B)).astype(np.int32),
+        offsets=np.stack([np.tile([[3, 1, -1, -4]], (B, 1)),
+                          rng.randint(-7, 8, (B, 4)),
+                          rng.randint(-7, 8, (B, 4))]).astype(np.int32))
+    args = (d["depth8"], d["modes8"], d["coef_y"], d["coef_cb"],
+            d["coef_cr"], W, H, QP)
+    kw = dict(modes4=d["modes4"], nxn8=d["nxn8"])
+    got = t_native.encode_slice_data(*args, **kw, sao=sao)
+    assert got == j_native.encode_slice_data(*args, **kw, sao=sao)
+    assert got != t_native.encode_slice_data(*args, **kw)
+
+
+def _check_ratectrl():
+    """Both controllers give the same QPs over one sequence of bit counts
+    (the picture level and the per-CTU map of LCURateController)."""
+    kw = dict(target_bps=2_000_000, fps=30, width=416, height=240,
+              n_frames=8, init_qp=30)
+    bits = [90_000, 40_000, 120_000, 70_000, 20_000, 150_000, 60_000,
+            80_000]
+    mad = np.random.RandomState(3).rand(28) * 20
+    for cls in ("RateController", "LCURateController"):
+        a, b = getattr(t_ratectrl, cls)(**kw), getattr(j_ratectrl, cls)(**kw)
+        qps = []
+        for n in bits:
+            qa, qb = a.pre_frame(), b.pre_frame()
+            assert qa == qb
+            qps.append(qa)
+            if cls == "LCURateController":
+                np.testing.assert_array_equal(a.pre_frame_lcu(mad, qa),
+                                              b.pre_frame_lcu(mad, qb))
+            a.post_frame(n)
+            b.post_frame(n)
+            assert (a.alpha, a.beta) == (b.alpha, b.beta)
+        assert len(set(qps)) >= 3, qps
+    assert t_ratectrl.lambda_to_qp(57.0) == j_ratectrl.lambda_to_qp(57.0)
+    assert t_ratectrl.qp_to_lambda(31) == j_ratectrl.qp_to_lambda(31)
+
+
 def _check_hash_sei():
     f = synth_frame(W, H, seed=2)
     for ht in ("md5", "crc", "checksum"):
@@ -139,7 +191,8 @@ def _check_zorder_scan():
 
 
 @pytest.mark.parametrize("what", ["headers", "python_cabac", "native_cabac",
-                                  "hash_sei", "yuv", "zorder_scan"])
+                                  "native_cabac_sao", "ratectrl", "hash_sei",
+                                  "yuv", "zorder_scan"])
 def test_copied_module_matches_original(what, tmp_path):
     check = globals()["_check_" + what]
     check(tmp_path) if what == "yuv" else check()

@@ -22,10 +22,14 @@ one JSON file):
   the wavefront schedule: over the 62 diagonals, the slowest CTU's chain
   of TU steps at the step times measured above (luma and chroma in one
   launch, and the older schedule of separate launches beside it);
-- `decide_1080p_trace`, `frames_batch8_trace`: the decide stage of one
-  frame, and `FrameParallelAI.encode_batch` of 8 frames, under
-  `torch.profiler`: device kernels, device-busy time, idle share of the
-  untraced wall time, the ten kernels with the most device time;
+- `decide_1080p_trace`, `filters_1080p_trace`, `frames_batch8_trace`: the
+  decide stage of one frame, the in-loop filter stage of one frame
+  (deblocking, SAO statistics, host decision and apply on the
+  reconstruction kernel's planes, as `AIEncoder` runs them with
+  `deblock=True, sao=True`), and `FrameParallelAI.encode_batch` of 8
+  frames, under `torch.profiler`: device kernels, device-busy time, idle
+  share of the untraced wall time, the ten kernels with the most device
+  time;
 - `bench_encode_1080p`: `bench_hooks.bench_encode_1080p` at
   `--bench-frames` frames, chunk 24, decide_chunk 4.
 """
@@ -206,6 +210,21 @@ def main():
     # decide stage of one 1080p frame (warm), traced
     say("decide_1080p_trace", trace(
         lambda: enc.decide_frame_full(pfs[0].y, None, pfs[0].cb, pfs[0].cr)))
+
+    # the in-loop filter stage of frame 0 (warm), traced
+    from hevc_tpu_torch.ops import deblock, sao
+    planes = recon.encode_frame_planes_batched(
+        *(t[:1] for t in full), qp=32, pad_w=cfg.pad_width,
+        pad_h=cfg.pad_height)
+    rec0 = [p[0] for p in planes[:3]]
+    orig0 = [t[0] for t in full[:3]]
+
+    def filters():
+        y, cb, cr = deblock.deblock_frame(*rec0, full[3][0], 32)
+        sao.apply_frame(y, cb, cr, sao.estimate_frame(*orig0, y, cb, cr, 32))
+
+    filters()
+    say("filters_1080p_trace", trace(filters))
 
     # one 8-frame batch of the frame-batched encoder, traced
     penc = FrameParallelAI(cfg, cnn=cnn, decide_chunk=4)
