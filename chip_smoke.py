@@ -16,10 +16,13 @@ bytes — runs the 1080p benchmark at a reduced depth, checks the stream
 with the HM reference decoder, drives `AIEncoder.encode` with deblocking
 and SAO on at 1080p (times of the filter stage per frame, its device
 kernels, HM decode) and under a `RateController` at 416x240 (the card's
-streams and QPs equal to the CPU's), and prints one JSON object per
-phase. The last line is `{"ok": true, "device": {...}}`; any failed phase
-ends the run with a non-zero exit code and no such line. Without a CUDA
-device it fails at once.
+streams and QPs equal to the CPU's), drives the Low-Delay-P predictor
+chain (`LDPPipeline.run`: motion search, MC, residue, ETH-LSTM) on eight
+1080p frames (its P-frames timed stage by stage) and against the same
+chain on the CPU, and prints one JSON object per phase. The last line is
+`{"ok": true, "device": {...}}`; any failed phase ends the run with a
+non-zero exit code and no such line. Without a CUDA device it fails at
+once.
 """
 
 import json
@@ -35,6 +38,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "models", "eth_cnn_qp30~35.npz")
+LSTM_WEIGHTS = os.path.join(ROOT, "models", "eth_lstm_qp30~35.npz")
 HM_DECODER = os.path.join(ROOT, "tools", "hm", "TAppDecoderStatic")
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; 33.5e12
@@ -349,18 +353,12 @@ def filter_stage(planes, depth8, origs, qp, times):
     return out, params
 
 
-def device_kernels(fn):
-    """(kernels, copies and fills, device-busy ms of both) the device ran
-    for fn(), from a `torch.profiler` trace."""
+def device_counts(prof):
+    """(kernels, copies and fills, device-busy ms of both) in a finished
+    `torch.profiler` trace."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
     kernels = copies = busy_us = 0
-    for e in p.key_averages():
+    for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         if e.key.startswith(("Memcpy", "Memset")):
@@ -370,6 +368,43 @@ def device_kernels(fn):
         dev_us = getattr(e, "self_device_time_total", None)
         busy_us += e.self_cuda_time_total if dev_us is None else dev_us
     return kernels, copies, busy_us / 1e3
+
+
+def device_kernels(fn):
+    """(kernels, copies and fills, device-busy ms of both) the device ran
+    for fn(), from a `torch.profiler` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return device_counts(p)
+
+
+def device_kernels_by_stage(fn):
+    """fn(stage_done) runs stages, each ending in stage_done(name).
+    Returns {name: (kernels, copies and fills, device-busy ms)} of each
+    stage, one `torch.profiler` trace per stage."""
+    from torch.profiler import ProfilerActivity, profile
+    out, traces = {}, []
+
+    def begin():
+        torch.cuda.synchronize()
+        traces.append(profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]))
+        traces[-1].start()
+
+    def stage_done(name):
+        torch.cuda.synchronize()
+        traces[-1].stop()
+        out[name] = device_counts(traces[-1])
+        begin()
+
+    begin()
+    fn(stage_done)
+    traces[-1].stop()
+    return out
 
 
 def check_filters_1080p(frames, cnn, device, reps=5):
@@ -509,6 +544,207 @@ def check_rate_control(cnn, cnn_cpu):
          "wall_s": wall, "satd35_launches": launches["satd35"],
          "recon_frame_launches": launches["recon_frame"]})
     return launches
+
+
+def ldp_lstm_params():
+    with np.load(LSTM_WEIGHTS) as z:
+        return {k: z[k] for k in z.files}
+
+
+def ldp_p_frame(pipe, cur, prev, poc, times):
+    """One P-frame of `LDPPipeline.run` (`LDPPipeline.p_frame`) on device
+    planes, a synchronise where each of its stages ends; their
+    milliseconds go into `times`. Returns what `p_frame` returns."""
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+
+    def stage_done(name):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        times[f"{name}_ms"] = (marks[-1] - marks[-2]) * 1e3
+
+    out = pipe.p_frame(cur, prev, poc, stage_done=stage_done)
+    times["total_ms"] = (marks[-1] - marks[0]) * 1e3
+    return out
+
+
+def gate_class_shares(hcpms):
+    """Share of HCPM nodes per split-gate class at each level, over the
+    P-frames' [B, 21] HCPMs (DEFAULT_LDP thresholds)."""
+    from hevc_tpu_torch.models import hcpm as hcpm_lib
+    cur, split = hcpm_lib.split_gates(torch.as_tensor(np.stack(hcpms)),
+                                      hcpm_lib.DEFAULT_LDP)
+    out = {}
+    for lvl, sl in (("64", slice(0, 1)), ("32", slice(1, 5)),
+                    ("16", slice(5, 21))):
+        c, s = cur[..., sl].reshape(-1), split[..., sl].reshape(-1)
+        n = c.numel()
+        out[lvl] = {"split_only": float((~c & s).sum()) / n,
+                    "current_only": float((c & ~s).sum()) / n,
+                    "both": float((c & s).sum()) / n}
+    return out
+
+
+def check_ldp_1080p(reps=3):
+    """The Low-Delay-P predictor chain at 1080p: `LDPPipeline.run` over
+    eight frames on the card with the shipped ETH-LSTM (shapes, ranges,
+    MVs, state moving), then each P-frame through `LDPPipeline.p_frame`
+    again with its stages timed (integer search, quarter-pel sweep, MC
+    and residue, LSTM step; the median of `reps` runs per warm stage)
+    and held equal to what `run` returned, and one P-frame's device
+    kernels per stage. Returns the frames and the record of POC 1 for
+    the card-vs-CPU check."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.pipeline import bench_hooks, ldp
+    # pad_align=64: whole CTUs, as the LDP encoder codes them
+    cfg = EncoderConfig(1920, 1080, qp=32, pad_align=64)
+    params = ldp_lstm_params()
+    frames = bench_hooks.synth_1080p_structured(n_frames=8)
+    pipe = ldp.LDPPipeline(cfg, lstm_params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipe.run(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_ctu = cfg.ctus_x * cfg.ctus_y
+    bound = 4 * 8 + 3
+    for rec in out[1:]:
+        h = rec["hcpm"]
+        if (h.shape != (n_ctu, 21) or not np.isfinite(h).all()
+                or h.min() < 0 or h.max() > 1):
+            fail(f"ldp_predictor_1080p: POC {rec['poc']} HCPM shape "
+                 f"{h.shape}, range [{h.min()}, {h.max()}]")
+        if (rec["resi_y"].shape != (cfg.pad_height, cfg.pad_width)
+                or rec["resi_cb"].shape != (cfg.pad_height // 2,
+                                            cfg.pad_width // 2)
+                or rec["resi_cr"].shape != rec["resi_cb"].shape):
+            fail("ldp_predictor_1080p: residue planes of the wrong shape")
+        if np.abs(rec["mv_q"]).max() > bound:
+            fail(f"ldp_predictor_1080p: |mv_q| above {bound}")
+    if any(np.array_equal(a["hcpm"], b["hcpm"])
+           for a, b in zip(out[1:], out[2:])):
+        fail("ldp_predictor_1080p: the HCPM did not move from step to step")
+    # the same run warm, from a reset predictor: the same records
+    pipe.predictor.reset()
+    t0 = time.perf_counter()
+    again = pipe.run(frames)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    if not all(np.array_equal(a[k], b[k]) for a, b in zip(out[1:], again[1:])
+               for k in ("resi_y", "mv_q")) or not all(
+            np.allclose(a["hcpm"], b["hcpm"], atol=1e-6, rtol=0)
+            for a, b in zip(out[1:], again[1:])):
+        fail("ldp_predictor_1080p: a second run after reset() differs")
+
+    # the same P-frames stage by stage, from a reset predictor
+    pipe.predictor.reset()
+    planes = [pipe._to_device(f) for f in frames]
+    w, h = cfg.pad_width, cfg.pad_height
+    dims = {"resi_y": (w, h, 64), "resi_cb": (w // 2, h // 2, 32),
+            "resi_cr": (w // 2, h // 2, 32)}
+    per_frame = []
+    for poc in range(1, len(frames)):
+        runs = [{} for _ in range(reps if poc > 1 else 1)]
+        state = pipe.predictor.state
+        for times in runs:
+            pipe.predictor.state = state
+            got = ldp_p_frame(pipe, planes[poc], planes[poc - 1], poc, times)
+        want = out[poc]
+        for k, g in zip(dims, got[:3]):
+            if not np.array_equal(ldp.tiles_to_plane(g, *dims[k]), want[k]):
+                fail(f"ldp_predictor_1080p: the staged {k} of POC {poc} "
+                     "differs from LDPPipeline.run's")
+        if (not np.array_equal(got[3].cpu().numpy(), want["mv_q"])
+                or not np.allclose(got[4].cpu().numpy(), want["hcpm"],
+                                   atol=1e-6, rtol=0)):
+            fail(f"ldp_predictor_1080p: the staged MVs or HCPM of POC {poc} "
+                 "differ from LDPPipeline.run's")
+        if poc > 1:                                   # warm frames
+            per_frame.append({k: float(np.median([t[k] for t in runs]))
+                              for k in runs[0]})
+    stages = device_kernels_by_stage(
+        lambda stage_done: pipe.p_frame(planes[7], planes[6], 7,
+                                        stage_done=stage_done))
+    kernels, copies, busy_ms = (sum(v[i] for v in stages.values())
+                                for i in range(3))
+    if kernels == 0:
+        fail("ldp_predictor_1080p: the profiler saw no device kernel")
+    mvs = np.stack([r["mv_q"] for r in out[1:]])
+    say({"phase": "ldp_predictor_1080p", "frames": len(frames),
+         "p_frames": len(frames) - 1, "size": "1920x1080",
+         "padded": f"{cfg.pad_width}x{cfg.pad_height}", "qp": cfg.qp,
+         "ctus": n_ctu, "lstm": os.path.basename(LSTM_WEIGHTS),
+         "run_wall_s": wall, "warm_run_wall_s": warm_wall,
+         "warm_run_s_per_p_frame": warm_wall / (len(frames) - 1),
+         "peak_device_bytes": peak,
+         "stage_runs_per_frame": reps,
+         "p_frame_ms_warm": per_frame,
+         "p_frame_ms_mean": {k: float(np.mean([t[k] for t in per_frame]))
+                             for k in per_frame[0]},
+         "p_frame_device_kernels": kernels,
+         "p_frame_copies_and_fills": copies,
+         "p_frame_device_busy_ms": busy_ms,
+         "p_frame_by_stage": {k: {"device_kernels": v[0],
+                                  "copies_and_fills": v[1],
+                                  "device_busy_ms": v[2]}
+                              for k, v in stages.items()},
+         "zero_mv_share": float((mvs == 0).all(-1).mean()),
+         "max_abs_mv_q": int(np.abs(mvs).max()),
+         "gate_class_share": gate_class_shares([r["hcpm"]
+                                                for r in out[1:]]),
+         "staged_equal_to_run": True})
+    return frames, out[1]
+
+
+def check_ldp_card_vs_cpu(frames_1080p, first_p_1080p):
+    """The card's LDP chain against the same chain on the CPU: six
+    416x240 frames, frames 2 and 3 with a flat 96x96 region around the
+    CTU at (128, 64), so every search candidate of that CTU ties in
+    P-frame 3; and the first P-frame at 1080p. Residue planes and MVs
+    equal, HCPM within atol 1e-5, split gates equal."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.models import hcpm as hcpm_lib
+    from hevc_tpu_torch.pipeline import bench_hooks, ldp
+    params = ldp_lstm_params()
+    small = bench_hooks.synth_structured(6, 11, 416, 240)
+    for f in small[2:4]:
+        f.y[48:144, 112:208] = 100
+    max_err = 0.0
+    cases = []
+    for size, frames, card in (
+            ((416, 240), small, None),
+            ((1920, 1080), frames_1080p[:2], [{"poc": 0}, first_p_1080p])):
+        cfg = EncoderConfig(*size, qp=32, pad_align=64)
+        if card is None:
+            card = ldp.LDPPipeline(cfg, lstm_params=params).run(frames)
+        cpu = ldp.LDPPipeline(cfg, lstm_params=params,
+                              device="cpu").run(frames)
+        for a, b in zip(card[1:], cpu[1:]):
+            for k in ("resi_y", "resi_cb", "resi_cr", "mv_q"):
+                if not np.array_equal(a[k], b[k]):
+                    fail(f"ldp_card_vs_cpu {size}: {k} of POC {a['poc']} "
+                         "differs from the CPU's")
+            max_err = max(max_err, float(np.abs(a["hcpm"] - b["hcpm"]).max()))
+            gates = [hcpm_lib.split_gates(torch.as_tensor(r["hcpm"]),
+                                          hcpm_lib.DEFAULT_LDP)
+                     for r in (a, b)]
+            if max_err > 1e-5 or not all(torch.equal(x, y)
+                                         for x, y in zip(*gates)):
+                fail(f"ldp_card_vs_cpu {size}: HCPM of POC {a['poc']} off "
+                     f"by {max_err} or its split gates differ")
+        cases.append({"size": f"{size[0]}x{size[1]}",
+                      "p_frames": len(frames) - 1})
+        if size == (416, 240):
+            tie = tuple(card[3]["mv_q"][1 * cfg.ctus_x + 2])
+            if tie != (-35, -35):
+                fail(f"ldp_card_vs_cpu: the flat CTU's MV is {tie}, not the "
+                     "first of the tied candidates (-35, -35)")
+    say({"phase": "ldp_card_vs_cpu", "cases": cases,
+         "residues_and_mvs_equal": True, "hcpm_max_abs_err": max_err,
+         "hcpm_tolerance": 1e-5, "split_gates_equal": True,
+         "flat_ctu_mv_q": [-35, -35]})
 
 
 def main():
@@ -719,7 +955,13 @@ def main():
     check_filters_small(small, cnn, cnn_cpu)
     rc_launches = check_rate_control(cnn, cnn_cpu)
 
-    # 12. the kernels of the main paths. satd35: times are sums over the
+    # 12. the Low-Delay-P predictor chain: eight 1080p frames through
+    # LDPPipeline.run, its P-frames timed stage by stage; then the card's
+    # chain against the CPU's at 416x240 and on the first 1080p P-frame
+    ldp_frames, ldp_first = check_ldp_1080p()
+    check_ldp_card_vs_cpu(ldp_frames, ldp_first)
+
+    # 13. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.

@@ -11,10 +11,11 @@ core      : YUV frames, CTU tiling, z-order helpers (host, NumPy)
 entropy   : CABAC engine, context models, syntax coding, NAL/Annex-B (host)
 native    : C++ slice-data CABAC coder, loaded with ctypes
 ops       : integer DCT/DST, quant, RDOQ, intra prediction, SATD, bit model,
-            in-loop filters (deblocking, SAO)
-models    : ETH-CNN, HCPM gating
+            in-loop filters (deblocking, SAO), inter MC and motion search
+models    : ETH-CNN, ETH-LSTM, HCPM gating
 pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder),
-            picture-level rate control
+            picture-level rate control, the Low-Delay-P predictor chain
+            (pre-encode residue -> ETH-LSTM HCPM, LDPPipeline)
 csrc      : CUDA sources of the kernels
 
 The float RD costs and the CNN probabilities feed hard comparisons, so

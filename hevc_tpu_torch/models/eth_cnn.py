@@ -90,6 +90,39 @@ def _space_to_depth(x, k):
     return x.reshape(b, h // k, w // k, k * k * c)
 
 
+def _branch_features(params, x, br):
+    """The 3-layer non-overlapping conv stack of one branch, with the
+    parameters `conv{1,2,3}_{br}_{w,b}` of `params` (ETH-CNN's, or the
+    residue CNN of ETH-LSTM). Returns (conv2_flat, conv3_flat) with
+    row-major [H,W,C] flattening."""
+    h = x[..., None]  # [B,H,W,1]
+    feats = []
+    for li, k in enumerate(CONV_KERNELS, start=1):
+        cells = _space_to_depth(h, k)  # [B,H/k,W/k,k*k*Cin]
+        h = _leaky(cells @ params[f"conv{li}_{br}_w"]
+                   + params[f"conv{li}_{br}_b"])
+        if li >= 2:
+            feats.append(h.reshape(h.shape[0], -1))
+    return feats[0], feats[1]
+
+
+def _load_params(model, params, shapes, what, device):
+    """Copy a name -> array dict into `model.params` (float32), raising on
+    a missing name or a wrong shape; the model goes to `device` (None
+    means the card) in eval mode."""
+    from .. import resolve_device
+    missing = sorted(set(shapes) - set(params))
+    if missing:
+        raise KeyError(f"{what} parameters missing: {missing}")
+    with torch.no_grad():
+        for name, shape in shapes.items():
+            a = np.asarray(params[name], np.float32)
+            if a.shape != shape:
+                raise ValueError(f"{name}: expected {shape}, got {a.shape}")
+            model.params[name].copy_(torch.from_numpy(a.copy()))
+    return model.to(resolve_device(device)).eval()
+
+
 class EthCnn(nn.Module):
     """ETH-CNN with its parameters under the checkpoint's own names."""
 
@@ -103,32 +136,7 @@ class EthCnn(nn.Module):
     def from_numpy(cls, params: Dict[str, np.ndarray], device=None):
         """Build from a name -> array dict (keys conv{1,2,3}_{S,M,L}_{w,b},
         l{64,32,16}_fc{1,2,3}_{w,b}). device=None means the card."""
-        from .. import resolve_device
-        model = cls()
-        shapes = param_shapes()
-        missing = sorted(set(shapes) - set(params))
-        if missing:
-            raise KeyError(f"ETH-CNN parameters missing: {missing}")
-        with torch.no_grad():
-            for name, shape in shapes.items():
-                a = np.asarray(params[name], np.float32)
-                if a.shape != shape:
-                    raise ValueError(f"{name}: expected {shape}, got {a.shape}")
-                model.params[name].copy_(torch.from_numpy(a.copy()))
-        return model.to(resolve_device(device)).eval()
-
-    def _branch_features(self, x, br):
-        """The 3-layer non-overlapping conv stack of one branch. Returns
-        (conv2_flat, conv3_flat) with row-major [H,W,C] flattening."""
-        h = x[..., None]  # [B,H,W,1]
-        feats = []
-        for li, k in enumerate(CONV_KERNELS, start=1):
-            cells = _space_to_depth(h, k)  # [B,H/k,W/k,k*k*Cin]
-            h = _leaky(cells @ self.params[f"conv{li}_{br}_w"]
-                       + self.params[f"conv{li}_{br}_b"])
-            if li >= 2:
-                feats.append(h.reshape(h.shape[0], -1))
-        return feats[0], feats[1]
+        return _load_params(cls(), params, param_shapes(), "ETH-CNN", device)
 
     def _head(self, lvl, feat, qp):
         """One per-level FC head: fc1 -> [qp] -> fc2 -> [qp] -> fc3 logits.
@@ -158,7 +166,7 @@ class EthCnn(nn.Module):
         }
         c2, c3 = {}, {}
         for br in ("S", "M", "L"):
-            c2[br], c3[br] = self._branch_features(branch_in[br], br)
+            c2[br], c3[br] = _branch_features(self.params, branch_in[br], br)
         # concat order: [conv3_S, conv3_M, conv3_L, conv2_S, conv2_M, conv2_L]
         feat = torch.cat([c3["S"], c3["M"], c3["L"],
                           c2["S"], c2["M"], c2["L"]], dim=1)

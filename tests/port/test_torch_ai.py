@@ -35,7 +35,7 @@ def _release_compiled_programs():
     gc.collect()
 
 
-NPZ = os.path.join(os.path.dirname(__file__), "..", "models",
+NPZ = os.path.join(os.path.dirname(__file__), "..", "..", "models",
                    "eth_cnn_qp30~35.npz")
 
 
@@ -99,7 +99,7 @@ def test_decisions_equal_without_cnn():
 
 def test_unported_options_raise():
     """Per-CTU QP is the one option still refused (the filters are held
-    to the JAX package by tests/test_torch_ai_filters.py)."""
+    to the JAX package by tests/port/test_torch_ai_filters.py)."""
     with pytest.raises(NotImplementedError):
         TAIEncoder(t_headers.EncoderConfig(64, 64, cu_qp_delta=True),
                    device="cpu")

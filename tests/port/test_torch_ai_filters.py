@@ -37,7 +37,7 @@ from hevc_tpu_torch.pipeline.ai import AIEncoder as TAIEncoder
 
 from tests.test_e2e_bitstream import synth_frame
 
-NPZ = os.path.join(os.path.dirname(__file__), "..", "models",
+NPZ = os.path.join(os.path.dirname(__file__), "..", "..", "models",
                    "eth_cnn_qp30~35.npz")
 W, H = 128, 64
 

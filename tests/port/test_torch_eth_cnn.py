@@ -30,7 +30,7 @@ def _release_compiled_programs():
     gc.collect()
 
 
-NPZ = os.path.join(os.path.dirname(__file__), "..", "models",
+NPZ = os.path.join(os.path.dirname(__file__), "..", "..", "models",
                    "eth_cnn_qp30~35.npz")
 
 

@@ -28,7 +28,7 @@ from hevc_tpu_torch.entropy.slice_enc import SliceEncoder as TSliceEncoder
 
 from tests.test_e2e_bitstream import legalize_depth, synth_frame
 
-ROOT = os.path.join(os.path.dirname(__file__), "..")
+ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
 W, H, QP = 128, 64, 30
 
 
