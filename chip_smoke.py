@@ -19,7 +19,11 @@ kernels, HM decode) and under a `RateController` at 416x240 (the card's
 streams and QPs equal to the CPU's), drives the Low-Delay-P predictor
 chain (`LDPPipeline.run`: motion search, MC, residue, ETH-LSTM) on eight
 1080p frames (its P-frames timed stage by stage) and against the same
-chain on the CPU, and prints one JSON object per phase. The last line is
+chain on the CPU, encodes the eight 1080p frames as a Low-Delay-P stream
+through the flat-tree `LDPEncoder` (an IDR, then one 64x64 inter CU per
+CTU; HM decode; the first three frames again with deblocking and SAO)
+and holds its filtered 416x240 stream equal to the CPU's, and prints one
+JSON object per phase. The last line is
 `{"ok": true, "device": {...}}`; any failed phase ends the run with a
 non-zero exit code and no such line. Without a CUDA device it fails at
 once.
@@ -747,6 +751,189 @@ def check_ldp_card_vs_cpu(frames_1080p, first_p_1080p):
          "flat_ctu_mv_q": [-35, -35]})
 
 
+def ldp_encoder(w, h, cnn, device=None, **cfg_kw):
+    """The flat-tree, P-only `LDPEncoder` at QP 32 (cfg_kw: deblock, sao)."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.pipeline.pframe import LDPEncoder
+    return LDPEncoder(EncoderConfig(w, h, qp=32, **cfg_kw), cnn=cnn,
+                      tree="flat", device=device)
+
+
+def kernel_launches():
+    from hevc_tpu_torch.ops import intra_mm
+    from hevc_tpu_torch.pipeline import recon_kernel
+    return {"satd35": intra_mm.launches,
+            "recon_frame": recon_kernel.launches}
+
+
+def reset_launches():
+    from hevc_tpu_torch.ops import intra_mm
+    from hevc_tpu_torch.pipeline import recon, recon_kernel
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+
+
+def check_ldp_launches(launches, of):
+    """The flat LDP path runs both kernels through its IDR only: 3 SATD
+    launches (one per node size) and 62 reconstruction launches."""
+    from hevc_tpu_torch.pipeline import recon
+    if launches != {"satd35": 3, "recon_frame": RECON_LAUNCHES_1080P}:
+        fail(f"{of}: kernel launches {launches}, expected 3 satd35 and "
+             f"{RECON_LAUNCHES_1080P} recon_frame (the IDR)")
+    if recon.batches != 0:
+        fail(f"{of}: the IDR went through the plain reconstruction")
+
+
+def ldp_psnr_check(frames, recons, of):
+    """PSNR-Y of each frame, above the 28 dB the AI path is held to."""
+    from hevc_tpu_torch.core.yuv import psnr
+    out = [float(psnr(r.y, f.y)) for f, r in zip(frames, recons)]
+    for r in recons:
+        if r.y.shape != frames[0].y.shape or r.cb.shape != frames[0].cb.shape:
+            fail(f"{of}: a recon has the wrong shape")
+    if not all(np.isfinite(p) and p > 28.0 for p in out):
+        fail(f"{of}: PSNR-Y per frame {out} is not sane")
+    return out
+
+
+def flat_p_frame_stages(enc, pf, prev, qp, reps=3):
+    """`encode_p_frame_device` of one P-frame with a synchronise where
+    each of its stages ends (search, quarter sweep, MC, transform):
+    the median milliseconds of each over `reps` runs, and each stage's
+    device kernels, copies and busy time from one trace per stage."""
+    from hevc_tpu_torch.pipeline.pframe import encode_p_frame_device
+    cur = enc._upload(pf)
+    kw = dict(qp=qp, pad_w=enc.cfg.pad_width, pad_h=enc.cfg.pad_height)
+    runs = []
+    for _ in range(reps):
+        times = {}
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def stage_done(name):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            times[f"{name}_ms"] = (marks[-1] - marks[-2]) * 1e3
+
+        encode_p_frame_device(*cur, *prev, **kw, stage_done=stage_done)
+        runs.append(times)
+    traced = device_kernels_by_stage(
+        lambda stage_done: encode_p_frame_device(*cur, *prev, **kw,
+                                                 stage_done=stage_done))
+    return ({k: float(np.median([t[k] for t in runs])) for k in runs[0]},
+            {k: {"device_kernels": v[0], "copies_and_fills": v[1],
+                 "device_busy_ms": v[2]} for k, v in traced.items()})
+
+
+def check_ldp_flat_1080p(frames, cnn):
+    """The port's first Low-Delay-P stream: eight 1080p frames through
+    `LDPEncoder(tree="flat").encode` (an IDR, then one 64x64 inter CU per
+    CTU; GOP QP offsets; filters off), HM decode, both kernels counted
+    (the IDR's), each P-frame's `_encode_flat` timed, one warm P-frame's
+    device kernels, copies and peak memory, its device part stage by
+    stage, the whole run's peak memory.
+    Returns the kernels' launches on this path."""
+    enc = ldp_encoder(1920, 1080, cnn)
+    p_frames, last, encode_flat = [], [], enc._encode_flat
+
+    def timed(pf, prev, poc, qp, times):
+        t0 = time.perf_counter()
+        out = encode_flat(pf, prev, poc, qp, times)
+        p_frames.append({"poc": poc, "wall_ms": (time.perf_counter() - t0)
+                         * 1e3, **{k[:-2] + "_ms": v * 1e3
+                                   for k, v in times.items()}})
+        last[:] = [pf, prev, poc, qp]
+        return out
+
+    enc._encode_flat = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    stream, recons, stats = enc.encode(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check_ldp_launches(launches, "ldp_flat_1080p")
+    psnrs = ldp_psnr_check(frames, recons, "ldp_flat_1080p")
+    if enc.frame_qps != [32, 35, 34, 35, 33, 35, 34, 35]:
+        fail(f"ldp_flat_1080p: frame QPs {enc.frame_qps}")
+    hm_check(stream, recons, 1920, 1080, "ldp_flat_1080p")
+    # one warm P-frame again: its peak device memory above what stays
+    # resident (the encoder's CNN, the reference picture), then its trace
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    encode_flat(*last)
+    p_peak = torch.cuda.max_memory_allocated() - resident
+    kernels, copies, busy_ms = device_kernels(lambda: encode_flat(*last))
+    if kernels == 0:
+        fail("ldp_flat_1080p: the profiler saw no device kernel")
+    stage_ms, by_stage = flat_p_frame_stages(enc, last[0], last[1], last[3])
+    warm = p_frames[1:]
+    say({"phase": "ldp_flat_1080p", "frames": len(frames),
+         "size": "1920x1080",
+         "padded": f"{enc.cfg.pad_width}x{enc.cfg.pad_height}",
+         "tree": "flat", "cnn": os.path.basename(WEIGHTS),
+         "frame_qps": enc.frame_qps, "bytes": len(stream),
+         "psnr_y": psnrs, "wall_s": wall, **stats,
+         "p_frame_ms": p_frames,
+         "warm_p_frame_median_ms": {
+             k: float(np.median([t[k] for t in warm]))
+             for k in ("wall_ms", "decide_ms", "recon_ms", "entropy_ms")},
+         "p_frame_device_kernels": kernels,
+         "p_frame_copies_and_fills": copies,
+         "p_frame_device_busy_ms": busy_ms,
+         "p_frame_device_stage_ms": stage_ms,
+         "p_frame_device_by_stage": by_stage,
+         "peak_device_bytes": peak,
+         "p_frame_peak_device_bytes_above_resident": p_peak,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
+
+
+def check_ldp_flat_filters_1080p(frames, cnn):
+    """The first three 1080p frames through the flat `LDPEncoder` with
+    deblocking and SAO on: HM decode, the IDR's kernel launches."""
+    enc = ldp_encoder(1920, 1080, cnn, deblock=True, sao=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    stream, recons, stats = enc.encode(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    check_ldp_launches(launches, "ldp_flat_filters_1080p")
+    psnrs = ldp_psnr_check(frames, recons, "ldp_flat_filters_1080p")
+    hm_check(stream, recons, 1920, 1080, "ldp_flat_filters_1080p")
+    say({"phase": "ldp_flat_filters_1080p", "frames": len(frames),
+         "deblock": True, "sao": True, "frame_qps": enc.frame_qps,
+         "bytes": len(stream), "psnr_y": psnrs, "wall_s": wall, **stats,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
+
+
+def check_ldp_flat_card_vs_cpu(cnn, cnn_cpu):
+    """The card's flat LDP stream against the CPU's: four 416x240 frames
+    (448x256 coded), filters on, a flat 96x96 region in frames 1 and 2
+    whose CTU ties every search candidate in P-frame 2."""
+    from hevc_tpu_torch.pipeline import bench_hooks
+    frames = bench_hooks.synth_structured(4, 13, 416, 240)
+    for f in frames[1:3]:
+        f.y[48:144, 112:208] = 100
+    out = {}
+    for dev, net in (("cuda", cnn), ("cpu", cnn_cpu)):
+        enc = ldp_encoder(416, 240, net, device=dev, deblock=True, sao=True)
+        out[dev] = enc.encode(frames)[:2] + (enc.frame_qps,)
+    if out["cuda"][0] != out["cpu"][0] or out["cuda"][2] != out["cpu"][2]:
+        fail("ldp_flat_card_vs_cpu: the card's stream differs from the CPU's")
+    say({"phase": "ldp_flat_card_vs_cpu", "size": "416x240",
+         "padded": "448x256", "frames": len(frames), "deblock": True,
+         "sao": True, "frame_qps": out["cuda"][2],
+         "bytes": len(out["cuda"][0]), "identical": True})
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
@@ -961,7 +1148,14 @@ def main():
     ldp_frames, ldp_first = check_ldp_1080p()
     check_ldp_card_vs_cpu(ldp_frames, ldp_first)
 
-    # 13. the kernels of the main paths. satd35: times are sums over the
+    # 13. the flat-tree LDPEncoder: the eight 1080p frames (HM decode),
+    # the first three with deblocking and SAO (HM decode), and the card's
+    # filtered stream against the CPU's at 416x240
+    ldp_launches = check_ldp_flat_1080p(ldp_frames, cnn)
+    ldp_filt_launches = check_ldp_flat_filters_1080p(ldp_frames[:3], cnn)
+    check_ldp_flat_card_vs_cpu(cnn, cnn_cpu)
+
+    # 14. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
@@ -971,7 +1165,9 @@ def main():
         "AIEncoder.encode": ai_launches[name],
         "FrameParallelAI.encode": fp_launches[name],
         "AIEncoder.encode deblock+sao 1080p": filt_launches[name],
-        "AIEncoder.encode rate_control 416x240": rc_launches[name]}
+        "AIEncoder.encode rate_control 416x240": rc_launches[name],
+        "LDPEncoder.encode flat 1080p": ldp_launches[name],
+        "LDPEncoder.encode flat deblock+sao 1080p": ldp_filt_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

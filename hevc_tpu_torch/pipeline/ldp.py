@@ -42,6 +42,29 @@ def _tiles(plane, origins, size):
                                  size, size)
 
 
+def _motion(cur_tiles, ref_y, ref_cb, ref_cr, origins, stage_done=None):
+    """The motion stages of one frame's forced-64x64 CTUs, shared by the
+    pre-encode and the flat P-frame coder: integer search (+-8), the
+    49-candidate quarter-pel sweep, then luma and chroma MC.
+
+    cur_tiles: [B, 64, 64] int32; ref planes on the same device.
+    stage_done, if given, is called with "integer_search" and
+    "quarter_refine" as those stages end.
+    Returns (mv_q [B, 2] int32, pred_y [B, 64, 64], pred_cb, pred_cr
+    [B, 32, 32]).
+    """
+    done = stage_done or (lambda name: None)
+    mv_int, _ = inter.integer_search_ctu(cur_tiles, ref_y, origins, radius=8)
+    done("integer_search")
+    mv_q, _ = _quarter_refine(cur_tiles, ref_y, origins, mv_int)
+    done("quarter_refine")
+    corg = origins // 2
+    pred_y = inter.predict_inter_ctu(ref_y, origins, mv_q, is_luma=True)
+    pred_cb = inter.predict_inter_ctu(ref_cb, corg, mv_q, is_luma=False)
+    pred_cr = inter.predict_inter_ctu(ref_cr, corg, mv_q, is_luma=False)
+    return mv_q, pred_y, pred_cb, pred_cr
+
+
 def pre_encode(cur, ref, cur_cb, ref_cb, cur_cr, ref_cr, *, pad_w: int,
                pad_h: int, stage_done=None):
     """Forced-64x64 inter pre-encode of one frame. The planes are tensors
@@ -53,38 +76,37 @@ def pre_encode(cur, ref, cur_cb, ref_cb, cur_cr, ref_cr, *, pad_w: int,
     Returns (resi_y [B, 64, 64], resi_cb, resi_cr [B, 32, 32], int32 in
     u8 range, +128 centered; mv_q [B, 2] int32), on that device.
     """
-    done = stage_done or (lambda name: None)
     origins = torch.as_tensor(search_lib.ctu_grid(pad_w, pad_h),
                               device=cur.device)
     cur_tiles = _tiles(cur, origins, 64)
-    mv_int, _ = inter.integer_search_ctu(cur_tiles, ref, origins, radius=8)
-    done("integer_search")
-    mv_q, _ = _quarter_refine(cur_tiles, ref, origins, mv_int)
-    done("quarter_refine")
-
-    pred_y = inter.predict_inter_ctu(ref, origins, mv_q, is_luma=True)
-    resi_y = (cur_tiles - pred_y + 128).clamp_(0, 255)
-
+    mv_q, pred_y, pred_cb, pred_cr = _motion(cur_tiles, ref, ref_cb, ref_cr,
+                                             origins, stage_done)
     corg = origins // 2
-
-    def chroma_resi(cur_c, ref_c):
-        pred = inter.predict_inter_ctu(ref_c, corg, mv_q, is_luma=False)
-        return (_tiles(cur_c, corg, 32) - pred + 128).clamp_(0, 255)
-
-    resi_cb = chroma_resi(cur_cb, ref_cb)
-    resi_cr = chroma_resi(cur_cr, ref_cr)
-    done("mc_residue")
+    resi_y = (cur_tiles - pred_y + 128).clamp_(0, 255)
+    resi_cb = (_tiles(cur_cb, corg, 32) - pred_cb + 128).clamp_(0, 255)
+    resi_cr = (_tiles(cur_cr, corg, 32) - pred_cr + 128).clamp_(0, 255)
+    if stage_done is not None:
+        stage_done("mc_residue")
     return resi_y, resi_cb, resi_cr, mv_q
 
 
 def tiles_to_plane(tiles, pad_w, pad_h, size):
     """[B, s, s] raster CTU tiles -> [pad_h, pad_w] plane (numpy)."""
     if isinstance(tiles, torch.Tensor):
-        tiles = tiles.cpu().numpy()
+        return tiles_to_plane_t(tiles, pad_w, pad_h, size).cpu().numpy()
     nx = -(-pad_w // size)
     ny = -(-pad_h // size)
     t = np.asarray(tiles).reshape(ny, nx, size, size)
     plane = t.transpose(0, 2, 1, 3).reshape(ny * size, nx * size)
+    return plane[:pad_h, :pad_w]
+
+
+def tiles_to_plane_t(tiles, pad_w, pad_h, size):
+    """`tiles_to_plane` on a tensor: the plane stays on its device."""
+    nx = -(-pad_w // size)
+    ny = -(-pad_h // size)
+    t = tiles.reshape(ny, nx, size, size)
+    plane = t.permute(0, 2, 1, 3).reshape(ny * size, nx * size)
     return plane[:pad_h, :pad_w]
 
 
