@@ -22,8 +22,13 @@ chain (`LDPPipeline.run`: motion search, MC, residue, ETH-LSTM) on eight
 chain on the CPU, encodes the eight 1080p frames as a Low-Delay-P stream
 through the flat-tree `LDPEncoder` (an IDR, then one 64x64 inter CU per
 CTU; HM decode; the first three frames again with deblocking and SAO)
-and holds its filtered 416x240 stream equal to the CPU's, and prints one
-JSON object per phase. The last line is
+and holds its filtered 416x240 stream equal to the CPU's, encodes them
+again through the ETH-LSTM-gated CU-tree `LDPEncoder(tree="full",
+rect_pu=False)` (quadtree inter search with merge/skip and intra-in-P,
+which runs the SATD kernel twice per P-frame; HM decode; its P-frames
+timed by stage; the shares of CUs by size and mode; the first three
+frames again with deblocking and SAO) and holds its 416x240 stream equal
+to the CPU's, and prints one JSON object per phase. The last line is
 `{"ok": true, "device": {...}}`; any failed phase ends the run with a
 non-zero exit code and no such line. Without a CUDA device it fails at
 once.
@@ -934,6 +939,199 @@ def check_ldp_flat_card_vs_cpu(cnn, cnn_cpu):
          "bytes": len(out["cuda"][0]), "identical": True})
 
 
+def full_encoder(w, h, cnn, device=None, **cfg_kw):
+    """`LDPEncoder(tree="full", rect_pu=False)` at QP 32 gated by the
+    shipped ETH-LSTM (cfg_kw: deblock, sao)."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.pipeline.pframe import LDPEncoder
+    return LDPEncoder(EncoderConfig(w, h, qp=32, **cfg_kw), cnn=cnn,
+                      lstm_params=ldp_lstm_params(), tree="full",
+                      rect_pu=False, device=device)
+
+
+def check_full_launches(launches, p_frames, of):
+    """The full-tree LDP path: the IDR's 3 SATD and 62 reconstruction
+    launches, then 2 SATD launches per P-frame (intra-in-P's 16x16 and
+    8x8 nodes), none through the plain reconstruction."""
+    from hevc_tpu_torch.pipeline import recon
+    want = {"satd35": 3 + 2 * p_frames, "recon_frame": RECON_LAUNCHES_1080P}
+    if launches != want:
+        fail(f"{of}: kernel launches {launches}, expected {want}")
+    if recon.batches != 0:
+        fail(f"{of}: the IDR went through the plain reconstruction")
+
+
+def record_searches(enc):
+    """Wrap enc.finish_p_frame: keep each P-frame's depth map and CU mode
+    map (device tensors). Returns the list they go in."""
+    seen, finish = [], enc.finish_p_frame
+
+    def wrapped(pf, cur, res, *a, **k):
+        seen.append((res.depth8, res.mode8))
+        return finish(pf, cur, res, *a, **k)
+
+    enc.finish_p_frame = wrapped
+    return seen
+
+
+def cu_shares(seen):
+    """Shares of the P-frames' CUs by depth and by mode (a CU at depth d
+    covers (8 >> d)^2 of the 8x8 units)."""
+    from hevc_tpu_torch.pipeline import psearch
+    by_depth = np.zeros(4)
+    by_mode = np.zeros(4)
+    for d8, m8 in seen:
+        d8, m8 = d8.cpu().numpy(), m8.cpu().numpy()
+        for d in range(4):
+            at = d8 == d
+            by_depth[d] += at.sum() / (8 >> d) ** 2
+            for m in range(4):
+                by_mode[m] += (at & (m8 == m)).sum() / (8 >> d) ** 2
+    n = by_depth.sum()
+    names = {psearch.AMVP: "amvp", psearch.MERGE: "merge",
+             psearch.SKIP: "skip", psearch.INTRA: "intra"}
+    return ({str(64 >> d): by_depth[d] / n for d in range(4)},
+            {names[m]: by_mode[m] / n for m in range(4)}, int(n))
+
+
+def slice_bytes(stream):
+    """Bytes of each slice NAL unit (one per picture) of an Annex-B
+    stream, start codes left out."""
+    starts = [m.end() for m in re.finditer(b"\x00\x00\x01", stream)]
+    out = []
+    for a, b in zip(starts, starts[1:] + [len(stream) + 3]):
+        nal = stream[a:b - 3].rstrip(b"\x00")
+        if (nal[0] >> 1) & 0x3F < 32:          # VCL NAL unit types
+            out.append(len(nal))
+    return out
+
+
+def check_ldp_full_1080p(frames, cnn):
+    """Eight 1080p frames through the ETH-LSTM-gated CU-tree
+    `LDPEncoder(tree="full", rect_pu=False)` (filters off): HM decode,
+    both kernels counted (K1 twice per P-frame through intra-in-P),
+    each P-frame timed by stage (pre-encode + LSTM step, search, finish,
+    coder), the shares of CUs by depth and mode, then one warm P-frame's
+    device kernels, busy time and peak memory above what stays resident.
+    Returns the kernels' launches on this path."""
+    enc = full_encoder(1920, 1080, cnn)
+    seen = record_searches(enc)
+    p_frames, last, encode_full = [], [], enc._encode_full
+
+    def timed(pf, prev, poc, qp, times):
+        t0 = time.perf_counter()
+        out = encode_full(pf, prev, poc, qp, times)
+        p_frames.append({"poc": poc, "wall_ms": (time.perf_counter() - t0)
+                         * 1e3, **{k[:-2] + "_ms": v * 1e3
+                                   for k, v in times.items()}})
+        last[:] = [pf, prev, poc, qp]
+        return out
+
+    enc._encode_full = timed
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    stream, recons, stats = enc.encode(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    check_full_launches(launches, len(frames) - 1, "ldp_full_1080p")
+    psnrs = ldp_psnr_check(frames, recons, "ldp_full_1080p")
+    if enc.frame_qps != [32, 35, 34, 35, 33, 35, 34, 35]:
+        fail(f"ldp_full_1080p: frame QPs {enc.frame_qps}")
+    hm_check(stream, recons, 1920, 1080, "ldp_full_1080p")
+    by_depth, by_mode, n_cu = cu_shares(seen)
+    # one warm P-frame again: its peak device memory above what stays
+    # resident (the networks, the reference picture), its device work
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    encode_full(*last)
+    p_peak = torch.cuda.max_memory_allocated() - resident
+    kernels, copies, busy_ms = device_kernels(lambda: encode_full(*last))
+    if kernels == 0:
+        fail("ldp_full_1080p: the profiler saw no device kernel")
+    warm = p_frames[1:]
+    say({"phase": "ldp_full_1080p", "frames": len(frames),
+         "size": "1920x1080",
+         "padded": f"{enc.cfg.pad_width}x{enc.cfg.pad_height}",
+         "tree": "full", "rect_pu": False,
+         "cnn": os.path.basename(WEIGHTS),
+         "lstm": os.path.basename(LSTM_WEIGHTS),
+         "frame_qps": enc.frame_qps, "bytes": len(stream),
+         "slice_bytes": slice_bytes(stream), "psnr_y": psnrs,
+         "wall_s": wall, **stats, "p_frame_ms": p_frames,
+         "warm_p_frame_median_ms": {
+             k: float(np.median([t[k] for t in warm]))
+             for k in ("wall_ms", "predict_ms", "search_ms", "recon_ms",
+                       "entropy_ms")},
+         "p_frame_device_kernels": kernels,
+         "p_frame_copies_and_fills": copies,
+         "p_frame_device_busy_ms": busy_ms,
+         "p_frame_peak_device_bytes_above_resident": p_peak,
+         "p_frame_cus": n_cu, "cu_share_by_size": by_depth,
+         "cu_share_by_mode": by_mode,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
+
+
+def check_ldp_full_filters_1080p(frames, cnn):
+    """The first three 1080p frames through the full tree with deblocking
+    and SAO on: HM decode, the kernels' launches."""
+    enc = full_encoder(1920, 1080, cnn, deblock=True, sao=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    stream, recons, stats = enc.encode(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    check_full_launches(launches, len(frames) - 1, "ldp_full_filters_1080p")
+    psnrs = ldp_psnr_check(frames, recons, "ldp_full_filters_1080p")
+    hm_check(stream, recons, 1920, 1080, "ldp_full_filters_1080p")
+    say({"phase": "ldp_full_filters_1080p", "frames": len(frames),
+         "deblock": True, "sao": True, "frame_qps": enc.frame_qps,
+         "bytes": len(stream), "slice_bytes": slice_bytes(stream),
+         "psnr_y": psnrs, "wall_s": wall, **stats,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
+
+
+def check_ldp_full_card_vs_cpu(cnn, cnn_cpu):
+    """The card's full-tree stream against the CPU's: four 416x240
+    frames (448x256 coded), ETH-LSTM-gated, a noise patch that appears in
+    frame 2 and a flat block new in frame 3 (intra CUs). Fails unless
+    some CU was intra, some merged or skipped, and some split."""
+    from hevc_tpu_torch.pipeline import bench_hooks, psearch
+    frames = bench_hooks.synth_structured(4, 17, 416, 240)
+    rng = np.random.RandomState(17)
+    frames[2].y[64:128, 192:256] = rng.randint(0, 256, (64, 64))
+    frames[3].y[64:128, 192:256] = np.roll(frames[2].y[64:128, 192:256], 2, 1)
+    frames[3].y[144:176, 32:64] = 235
+    out = {}
+    for dev, net in (("cuda", cnn), ("cpu", cnn_cpu)):
+        enc = full_encoder(416, 240, net, device=dev)
+        seen = record_searches(enc)
+        out[dev] = enc.encode(frames)[:2] + (enc.frame_qps, seen)
+    if out["cuda"][0] != out["cpu"][0] or out["cuda"][2] != out["cpu"][2]:
+        fail("ldp_full_card_vs_cpu: the card's stream differs from the CPU's")
+    seen = [(d.cpu().numpy(), m.cpu().numpy()) for d, m in out["cuda"][3]]
+    intra = sum(int((m == psearch.INTRA).sum()) for _, m in seen)
+    merged = sum(int(np.isin(m, (psearch.MERGE, psearch.SKIP)).sum())
+                 for _, m in seen)
+    split = sum(int((d > 0).sum()) for d, _ in seen)
+    if not (intra and merged and split):
+        fail(f"ldp_full_card_vs_cpu: 8x8 units intra {intra}, merged or "
+             f"skipped {merged}, in split CUs {split}: a branch was not "
+             "exercised")
+    say({"phase": "ldp_full_card_vs_cpu", "size": "416x240",
+         "padded": "448x256", "frames": len(frames), "lstm": True,
+         "frame_qps": out["cuda"][2], "bytes": len(out["cuda"][0]),
+         "identical": True, "units_intra": intra,
+         "units_merge_or_skip": merged, "units_in_split_cus": split})
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
@@ -1155,7 +1353,14 @@ def main():
     ldp_filt_launches = check_ldp_flat_filters_1080p(ldp_frames[:3], cnn)
     check_ldp_flat_card_vs_cpu(cnn, cnn_cpu)
 
-    # 14. the kernels of the main paths. satd35: times are sums over the
+    # 14. the ETH-LSTM-gated CU-tree LDPEncoder: the eight 1080p frames
+    # (HM decode), the first three with deblocking and SAO (HM decode),
+    # and the card's stream against the CPU's at 416x240
+    full_launches = check_ldp_full_1080p(ldp_frames, cnn)
+    full_filt_launches = check_ldp_full_filters_1080p(ldp_frames[:3], cnn)
+    check_ldp_full_card_vs_cpu(cnn, cnn_cpu)
+
+    # 15. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
@@ -1167,7 +1372,9 @@ def main():
         "AIEncoder.encode deblock+sao 1080p": filt_launches[name],
         "AIEncoder.encode rate_control 416x240": rc_launches[name],
         "LDPEncoder.encode flat 1080p": ldp_launches[name],
-        "LDPEncoder.encode flat deblock+sao 1080p": ldp_filt_launches[name]}
+        "LDPEncoder.encode flat deblock+sao 1080p": ldp_filt_launches[name],
+        "LDPEncoder.encode full 1080p": full_launches[name],
+        "LDPEncoder.encode full deblock+sao 1080p": full_filt_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

@@ -15,7 +15,9 @@ ops       : integer DCT/DST, quant, RDOQ, intra prediction, SATD, bit model,
 models    : ETH-CNN, ETH-LSTM, HCPM gating
 pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder),
             picture-level rate control, the Low-Delay-P predictor chain
-            (pre-encode residue -> ETH-LSTM HCPM, LDPPipeline)
+            (pre-encode residue -> ETH-LSTM HCPM, LDPPipeline) and the
+            Low-Delay-P encoder (LDPEncoder: flat tree, or the CU-tree P
+            search of psearch with the host intra re-code of intra_p)
 csrc      : CUDA sources of the kernels
 
 The float RD costs and the CNN probabilities feed hard comparisons, so

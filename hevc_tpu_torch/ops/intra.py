@@ -110,6 +110,82 @@ def _angular_tables(mode: int, n: int):
 
 
 # ---------------------------------------------------------------------------
+# NumPy twins (the host's normative TU coder, pipeline/golden._code_tu)
+# ---------------------------------------------------------------------------
+
+def substitute_refs_np(r, avail, bit_depth=8):
+    """Reference sample substitution (8.4.4.2.2) on linear arrays.
+
+    r: [B, 4N+1] sample values (garbage where unavailable).
+    avail: [B, 4N+1] bool.
+    """
+    r = np.array(r, np.int32)
+    avail = np.asarray(avail, bool)
+    out = np.empty_like(r)
+    for b in range(r.shape[0]):
+        if not avail[b].any():
+            out[b] = 1 << (bit_depth - 1)
+            continue
+        row = r[b].copy()
+        # forward fill from index 0; leading unavailable take first available
+        first = np.argmax(avail[b])
+        row[:first] = row[first]
+        for i in range(1, row.shape[0]):
+            if not avail[b, i] and i > first:
+                row[i] = row[i - 1]
+        out[b] = row
+    return out
+
+
+def filter_refs_np(r):
+    """[1 2 1]/4 smoothing along the linear ref array, endpoints kept."""
+    r = np.asarray(r, np.int32)
+    f = r.copy()
+    f[..., 1:-1] = (r[..., :-2] + 2 * r[..., 1:-1] + r[..., 2:] + 2) >> 2
+    return f
+
+
+def predict_np(r, mode, n, *, component="luma", bit_depth=8):
+    """Predict one [B, n, n] block from linear refs [B, 4n+1] for `mode`."""
+    r = np.asarray(r, np.int32)
+    B = r.shape[0]
+    left = r[:, 2 * n - 1::-1]        # left[j] = p[-1][j], j=0..2n-1
+    top = r[:, 2 * n + 1:]            # top[i] = p[i][-1], i=0..2n-1
+    corner = r[:, 2 * n]
+    maxv = (1 << bit_depth) - 1
+    shift = int(n).bit_length()       # log2(n) + 1
+
+    if mode == PLANAR:
+        xx = np.arange(n)[None, None, :]
+        yy = np.arange(n)[None, :, None]
+        return (((n - 1 - xx) * left[:, :n, None] + (xx + 1) * top[:, n, None, None]
+                 + (n - 1 - yy) * top[:, None, :n]
+                 + (yy + 1) * left[:, n, None, None] + n) >> shift
+                ).astype(np.int32)
+
+    if mode == DC:
+        dc = (top[:, :n].sum(1) + left[:, :n].sum(1) + n) >> shift
+        pred = np.broadcast_to(dc[:, None, None], (B, n, n)).copy()
+        if component == "luma" and n < 32:
+            pred[:, 0, 1:] = (top[:, 1:n] + 3 * dc[:, None] + 2) >> 2
+            pred[:, 1:, 0] = (left[:, 1:n] + 3 * dc[:, None] + 2) >> 2
+            pred[:, 0, 0] = (left[:, 0] + 2 * dc + top[:, 0] + 2) >> 2
+        return pred.astype(np.int32)
+
+    idx0, idx1, fact = _angular_tables(mode, n)
+    pred = ((32 - fact)[None] * r[:, idx0] + fact[None] * r[:, idx1]
+            + 16) >> 5
+    if component == "luma" and n < 32:
+        if mode == VER:
+            delta = (left[:, :n] - corner[:, None]) >> 1
+            pred[:, :, 0] = np.clip(top[:, 0][:, None] + delta, 0, maxv)
+        elif mode == HOR:
+            delta = (top[:, :n] - corner[:, None]) >> 1
+            pred[:, 0, :] = np.clip(left[:, 0][:, None] + delta, 0, maxv)
+    return pred.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
 # Batched torch versions
 # ---------------------------------------------------------------------------
 

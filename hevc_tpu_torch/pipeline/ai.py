@@ -81,26 +81,13 @@ class AIEncoder:
             kw.update(cb_plane=self._t(cb_pad), cr_plane=self._t(cr_pad))
         if self.cnn is not None:
             probs = self.predict_hcpm(y_pad, qp)
-            md = self._gate_max_depth(probs) if self.max_depth_exit else 3
+            md = (search.gate_max_depth(probs, self.thr, self.cfg.pad_width,
+                                        self.cfg.pad_height)
+                  if self.max_depth_exit else 3)
             kw.update(hcpm_probs=probs, thr_up=self.thr.up,
                       thr_down=self.thr.down, max_depth=md)
         res = search.search_frame(self._t(y_pad), self._origins, **kw)
         return self._assemble(res)
-
-    def _gate_max_depth(self, probs) -> int:
-        """Deepest CU level any gate leaves open this frame (a host-side
-        scalar), floored at the forced-split depth of the padded frame."""
-        cs = hcpm.split_gates(probs, self.thr)[1].cpu().numpy()
-        if cs[:, 5:21].any():
-            md = 3
-        elif cs[:, 1:5].any():
-            md = 2
-        elif cs[:, 0].any():
-            md = 1
-        else:
-            md = 0
-        return max(md, search.forced_depth_floor(self.cfg.pad_width,
-                                                 self.cfg.pad_height))
 
     def _assemble(self, res: search.SearchResult):
         cfg = self.cfg

@@ -1,8 +1,11 @@
-"""Decoded-picture-hash helpers (SEI payload, H.265 D.3.19).
+"""Decoded-picture-hash helpers (SEI payload, H.265 D.3.19) and the
+normative NumPy TU coder.
 
 The port's copy of the hash functions of the reference package's golden
-encoder; the sequential NumPy encoder itself is not part of the port (the
-tests use the reference package's as their oracle).
+encoder, and of its one-TB intra coder (`_predict_tu`, `_code_tu`), which
+the intra-in-P re-code of P frames runs on the host
+(pipeline/intra_p). The sequential NumPy encoder itself is not part of
+the port (the tests use the reference package's as their oracle).
 """
 
 from __future__ import annotations
@@ -10,6 +13,44 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+
+from ..core import zorder
+from ..ops import intra, quant, rdoq as rdoq_lib, transforms
+
+
+def _predict_tu(plane, zmap, x0, y0, n, mode, *, component, pad_w, pad_h,
+                scale=1):
+    """Normative intra prediction of one TB from reconstructed samples."""
+    r = zorder.gather_refs(plane, x0, y0, n)[None]
+    avail = zorder.avail_mask(x0, y0, n, pad_w, pad_h, zmap, scale)[None]
+    r = intra.substitute_refs_np(r, avail)
+    if component == "luma" and intra.ref_filter_flag(mode, n):
+        r = intra.filter_refs_np(r)
+    return intra.predict_np(r, mode, n, component=component)[0]
+
+
+def _code_tu(orig, recon, coef_out, zmap, x0, y0, n, mode, qp, *,
+             component, pad_w, pad_h, scale=1, rdoq=True):
+    """Encode one TB: predict -> transform -> quant -> recon in place."""
+    pred = _predict_tu(recon, zmap, x0, y0, n, mode, component=component,
+                       pad_w=pad_w, pad_h=pad_h, scale=scale)
+    resi = orig[y0:y0 + n, x0:x0 + n].astype(np.int32) - pred
+    use_dst = (component == "luma" and n == 4)
+    coef = transforms.forward_transform_np(resi[None], use_dst=use_dst)[0]
+    if rdoq:
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+        lvl = rdoq_lib.rd_quantize_np(coef[None], qp, lam,
+                                      is_luma=component == "luma")[0]
+    else:
+        lvl = quant.quantize_np(coef[None], qp)[0]
+    coef_out[y0:y0 + n, x0:x0 + n] = lvl
+    if np.any(lvl):
+        deq = quant.dequantize_np(lvl[None], qp)[0]
+        rec_resi = transforms.inverse_transform_np(deq[None],
+                                                   use_dst=use_dst)[0]
+    else:
+        rec_resi = 0
+    recon[y0:y0 + n, x0:x0 + n] = np.clip(pred + rec_resi, 0, 255)
 
 
 def md5_plane(plane: np.ndarray) -> bytes:

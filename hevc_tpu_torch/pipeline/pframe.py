@@ -1,15 +1,20 @@
 """P-frame coding: motion search + MC + residual transform + recon on the
 device, then the P-slice CABAC on the host.
 
-`tree="flat"`: every CTU is one inter 2Nx2N 64x64 CU against the previous
-reconstruction (the reference pre-encode shape,
-HM-16.5_Resi_Pre/TEncCu.cpp:388-397), the fastest operating point. It
+`tree="full"` (the default, as in the reference): the HCPM-gated CU-tree
+P search (pipeline/psearch: quadtree ME, AMVP, merge/skip and intra-in-P
+on square PUs) against the previous reconstruction, gated by the
+ETH-LSTM when `lstm_params` is given (pre-encode residue -> HCPM, state
+on the device); intra CUs are then re-coded normatively on the host
+(pipeline/intra_p). `tree="flat"`: every CTU is one inter 2Nx2N 64x64
+CU against the previous reconstruction (the reference pre-encode shape,
+HM-16.5_Resi_Pre/TEncCu.cpp:388-397), the fastest operating point; it
 references the previous picture only, whatever `cfg.num_refs` says, as
-the reference's flat tree does. The full CU-tree search (`tree="full"`)
-and low-delay B are not ported yet and raise.
+the reference's flat tree does. Rectangular PUs, several references,
+low-delay B and a per-CTU QP are not ported yet and raise.
 
 Inter reconstruction has no spatial dependency, so a whole frame runs as
-one batch of CTU tiles; only the levels, the MVs and the final
+one batch of CTU tiles; only the levels, the decision maps and the final
 reconstruction go to the host (for the coder and the hash SEI). The
 reference picture stays on the device.
 """
@@ -26,34 +31,16 @@ from .. import native, resolve_device
 from ..core.yuv import Frame, crop_frame, pad_frame
 from ..entropy import headers
 from ..entropy.bitstream import NAL_TRAIL_R, nal_unit
-from ..ops import deblock, quant, sao, transforms
-from ..ops import rdoq as rdoq_lib
-from . import golden, ldp
+from ..ops import deblock, quant, sao
+from . import golden, intra_p, ldp, psearch
 from . import search as search_lib
 from .ai import AIEncoder
 
 
-def _tile_tu_transform(tiles, qp, tu: int, rdoq=True, is_luma=True):
-    """[B, S, S] residual tiles -> (levels, recon_resi) per TU of size tu.
-    The lambda comes from the QP given (the chroma QP for chroma)."""
-    B, S, _ = tiles.shape
-    g = S // tu
-    t = tiles.reshape(B, g, tu, g, tu).permute(0, 1, 3, 2, 4)
-    t = t.reshape(B * g * g, tu, tu)
-    cf = transforms.forward_transform(t)
-    if rdoq:
-        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
-        lvl = rdoq_lib.rd_quantize(cf, qp, lam, is_intra=False,
-                                   is_luma=is_luma)
-    else:
-        lvl = quant.quantize(cf, qp, is_intra=False)
-    rr = transforms.inverse_transform(quant.dequantize(lvl, qp))
-
-    def back(x):
-        x = x.reshape(B, g, g, tu, tu).permute(0, 1, 3, 2, 4)
-        return x.reshape(B, S, S)
-
-    return back(lvl), back(rr)
+def _qp_lambda(qp: int) -> float:
+    """The flat tree's RDOQ lambda of a QP (float64, as the reference
+    computes it from a static QP)."""
+    return 0.57 * 2.0 ** ((qp - 12) / 3.0)
 
 
 def encode_p_frame_device(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr, *,
@@ -76,11 +63,14 @@ def encode_p_frame_device(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr, *,
     if stage_done is not None:
         stage_done("motion_compensation")
 
-    lvl_y, rr_y = _tile_tu_transform(cur_y_t - pred_y, qp, 32)
-    lvl_cb, rr_cb = _tile_tu_transform(ldp._tiles(cur_cb, corg, 32) - pred_cb,
-                                       cqp, 16, is_luma=False)
-    lvl_cr, rr_cr = _tile_tu_transform(ldp._tiles(cur_cr, corg, 32) - pred_cr,
-                                       cqp, 16, is_luma=False)
+    lam, lam_c = _qp_lambda(qp), _qp_lambda(cqp)
+    lvl_y, rr_y = psearch._tu_transform(cur_y_t - pred_y, qp, 32, lam, True)
+    lvl_cb, rr_cb = psearch._tu_transform(
+        ldp._tiles(cur_cb, corg, 32) - pred_cb, cqp, 16, lam_c, True,
+        is_luma=False)
+    lvl_cr, rr_cr = psearch._tu_transform(
+        ldp._tiles(cur_cr, corg, 32) - pred_cr, cqp, 16, lam_c, True,
+        is_luma=False)
     rec = [(p + r).clamp_(0, 255).to(torch.uint8)
            for p, r in ((pred_y, rr_y), (pred_cb, rr_cb), (pred_cr, rr_cr))]
     out = (lvl_y.to(torch.int16), lvl_cb.to(torch.int16),
@@ -95,24 +85,29 @@ class LDPEncoder:
     previous reconstruction, with the GOP-4 per-frame QP offsets of the
     reference encoder_lowdelay_P_main.cfg.
 
-    Ported: `tree="flat"` (one inter 2Nx2N 64x64 CU per CTU, the P
-    slices' RDOQ always on, whatever `cfg.rdoq` says, as in the
-    reference) with `slice_mode="P"`. `tree="full"` (the HCPM-gated
-    quadtree search) and `slice_mode="B"` raise. The default stays
-    `tree="full"`, as in the reference.
+    tree="full" (the default, as in the reference) runs the CU-tree P
+    search (pipeline/psearch) on square PUs; it needs `rect_pu=False`
+    until rectangular PUs are ported. With `lstm_params` (an ETH-LSTM
+    checkpoint's name -> array dict) each P-frame is first pre-encoded
+    against the previous reconstruction and the LSTM's HCPM gates the
+    search (`thresholds`, default hcpm.DEFAULT_LDP); `max_depth_exit`
+    narrows a frame's search to the deepest level a gate leaves open.
+    tree="flat": one inter 2Nx2N 64x64 CU per CTU, the P slices' RDOQ
+    always on, whatever `cfg.rdoq` says, as in the reference.
+    `slice_mode="B"`, `cfg.cu_qp_delta`, and with tree="full"
+    `cfg.num_refs > 1` and `rect_pu=True`, raise.
 
     cnn: an `eth_cnn.EthCnn` for the IDR's decide, or None for the
     ungated search. device=None means the card; with no card that raises
     (pass device="cpu" to run on the CPU).
     """
 
-    def __init__(self, cfg, cnn=None, tree: str = "full",
-                 use_gop_qp: bool = True, slice_mode: str = "P",
-                 device=None):
-        if tree != "flat":
-            raise NotImplementedError(
-                f"tree={tree!r}: the CU-tree P search is not ported yet "
-                "(ROADMAP Queue 1, M10b part 2); use tree='flat'")
+    def __init__(self, cfg, cnn=None, lstm_params=None, thresholds=None,
+                 tree: str = "full", use_gop_qp: bool = True,
+                 slice_mode: str = "P", max_depth_exit: bool = False,
+                 rect_pu: bool = True, device=None):
+        if tree not in ("full", "flat"):
+            raise ValueError(f"tree={tree!r}: 'full' or 'flat'")
         if slice_mode != "P":
             # the reference's flat tree writes a P slice header and codes
             # its data with B contexts: HM reports an MD5 mismatch
@@ -120,15 +115,33 @@ class LDPEncoder:
                 f"slice_mode={slice_mode!r}: low-delay B is not ported yet "
                 "(ROADMAP Queue 1, M10b part 4)")
         if getattr(cfg, "cu_qp_delta", False):
-            raise NotImplementedError("per-CTU QP is not ported yet")
+            raise NotImplementedError(
+                "cu_qp_delta: a per-CTU QP is not ported yet (ROADMAP "
+                "Queue 1, M11)")
+        if tree == "full" and rect_pu:
+            raise NotImplementedError(
+                "rect_pu=True: rectangular PUs are not ported yet (ROADMAP "
+                "Queue 1, M10b part 3); pass rect_pu=False")
+        if tree == "full" and cfg.num_refs > 1:
+            raise NotImplementedError(
+                f"num_refs={cfg.num_refs}: several references are not "
+                "ported yet (ROADMAP Queue 1, M10b part 4)")
         if cfg.pad_width % 64 or cfg.pad_height % 64:
             # LDP codes whole CTUs only; pad to 64-multiples and crop via
             # the SPS conformance window
             cfg = dataclasses.replace(cfg, pad_align=64)
         self.cfg = cfg
+        self.tree = tree
         self.use_gop_qp = use_gop_qp
         self.device = resolve_device(device)
         self.intra = AIEncoder(cfg, cnn=cnn, device=self.device)
+        self.predictor = (ldp.LDPPredictor(cfg, lstm_params, thresholds,
+                                           device=self.device)
+                          if lstm_params is not None else None)
+        self.max_depth_exit = max_depth_exit and self.predictor is not None
+        self._origins = torch.as_tensor(
+            search_lib.ctu_grid(cfg.pad_width, cfg.pad_height),
+            dtype=torch.int64, device=self.device)
 
     def _frame_qp(self, poc: int) -> int:
         offsets = self.cfg.gop_qp_offsets
@@ -148,10 +161,11 @@ class LDPEncoder:
 
     def encode(self, frames, with_hash_sei: bool = True):
         """Encode a sequence; returns (annexb bytes, recons, stats).
-        stats: decide_s (the IDR's decide, the P frames' motion stages),
-        recon_s (the IDR's reconstruction; the P frames' transform,
-        quantization, reconstruction, filters and copies to the host),
-        entropy_s (the coders and the hash SEI)."""
+        stats: decide_s (the IDR's decide; the P frames' pre-encode, LSTM
+        step and search, or the flat tree's motion stages), recon_s (the
+        IDR's reconstruction; the P frames' transforms or the intra
+        re-code, filters and copies to the host), entropy_s (the coders
+        and the hash SEI)."""
         cfg = self.cfg
         chunks = [headers.write_vps(cfg), headers.write_sps(cfg),
                   headers.write_pps(cfg)]
@@ -159,6 +173,8 @@ class LDPEncoder:
         dpb = []                  # padded device reconstructions, newest first
         stats = {"decide_s": 0.0, "recon_s": 0.0, "entropy_s": 0.0}
         self.frame_qps = []       # actual per-picture QPs
+        if self.predictor is not None:
+            self.predictor.reset()
         for poc, frame in enumerate(frames):
             pf = pad_frame(frame, cfg.pad_width, cfg.pad_height)
             frame_qp = self._frame_qp(poc)
@@ -179,8 +195,9 @@ class LDPEncoder:
                 t_entropy = time.perf_counter() - t2
             else:
                 times = {}
-                rec, ref, chunk = self._encode_flat(pf, dpb[0], poc,
-                                                    frame_qp, times)
+                p_frame = (self._encode_flat if self.tree == "flat"
+                           else self._encode_full)
+                rec, ref, chunk = p_frame(pf, dpb[0], poc, frame_qp, times)
                 chunks.append(chunk)
                 stats["decide_s"] += times["decide_s"]
                 stats["recon_s"] += times["recon_s"]
@@ -198,15 +215,117 @@ class LDPEncoder:
         return b"".join(chunks), recons, stats
 
     def _p_slice_nal(self, bw, depth8, mvq8, coef_y, coef_cb, coef_cr,
-                     frame_qp, sao_params=None):
+                     frame_qp, sao_params=None, **kw):
         """P slice NAL: header bits in `bw`, then the slice data of the
-        native C++ coder. A failure of the coder raises: there is no
-        fallback coder."""
+        native C++ coder (kw: its ref8, n_refs, poc, intra8, imode8). A
+        failure of the coder raises: there is no fallback coder."""
         cfg = self.cfg
         data = native.encode_slice_data_p(
             depth8, mvq8, coef_y, coef_cb, coef_cr, cfg.pad_width,
-            cfg.pad_height, frame_qp, sao=sao_params)
+            cfg.pad_height, frame_qp, sao=sao_params, **kw)
         return nal_unit(NAL_TRAIL_R, bw.get_bytes() + data)
+
+    def _encode_full(self, pf, prev, poc, frame_qp, times=None):
+        """One CU-tree P frame. pf: the padded host Frame; prev: the
+        reference as (y, cb, cr) int32 planes on the device. Returns
+        (padded reconstruction as a host Frame, the same as int32 device
+        planes for the DPB, NAL bytes). times, if given, receives
+        predict_s (pre-encode and LSTM step), search_s, decide_s (their
+        sum), recon_s (`finish_p_frame` but the coder) and entropy_s."""
+        cfg = self.cfg
+        W, H = cfg.pad_width, cfg.pad_height
+        marks = [time.perf_counter()]
+        cur = self._upload(pf)
+        probs, gate = None, {}
+        if self.predictor is not None:
+            # the pre-encode against the previous reconstruction
+            ry, _, _, _ = ldp.pre_encode(cur[0], prev[0], cur[1], prev[1],
+                                         cur[2], prev[2], pad_w=W, pad_h=H)
+            probs = self.predictor.step(ry, poc)
+            thr = self.predictor.thr
+            gate = dict(hcpm_probs=probs, thr_up=thr.up, thr_down=thr.down)
+        self._sync()
+        marks.append(time.perf_counter())
+        max_depth = 3
+        if self.max_depth_exit:
+            max_depth = search_lib.gate_max_depth(probs, self.predictor.thr,
+                                                  W, H)
+        n_act = min(poc, cfg.num_refs)
+        res = psearch.p_search_frame(
+            *cur, *(p[None] for p in prev), self._origins, qp=frame_qp,
+            pad_w=W, pad_h=H, use_rdoq=cfg.rdoq, n_active_refs=n_act,
+            max_depth=max_depth, rect_pu=False, **gate)
+        self._sync()
+        marks.append(time.perf_counter())
+        rec, ref, chunk = self.finish_p_frame(pf, cur, res, poc, frame_qp,
+                                              n_act, marks)
+        if times is not None:
+            times.update(predict_s=marks[1] - marks[0],
+                         search_s=marks[2] - marks[1],
+                         decide_s=marks[2] - marks[0],
+                         recon_s=marks[3] - marks[2],
+                         entropy_s=marks[4] - marks[3])
+        return rec, ref, chunk
+
+    def finish_p_frame(self, pf, cur, res, poc, frame_qp, n_act,
+                       marks=None):
+        """The finish of one searched P frame: tiles to planes, the
+        normative re-code of intra CUs (host, z-order), the loop filters
+        and the slice NAL. pf: the padded host Frame; cur: its planes on
+        the device; res: the `psearch.PSearchResult`. Returns (padded
+        reconstruction as a host Frame, the same as int32 device planes,
+        NAL bytes). marks, if given, gets the time when the coder starts
+        and when it ends."""
+        cfg = self.cfg
+        W, H = cfg.pad_width, cfg.pad_height
+
+        def plane(t, size):
+            return ldp.tiles_to_plane_t(t, W * size // 64, H * size // 64,
+                                        size)
+
+        rec = [plane(res.rec_y, 64), plane(res.rec_cb, 32),
+               plane(res.rec_cr, 32)]
+        coef = [plane(res.coef_y, 64), plane(res.coef_cb, 32),
+                plane(res.coef_cr, 32)]
+        maps = {k: plane(getattr(res, k), 8)
+                for k in ("depth8", "ref8", "intra8", "imode8")}
+        maps["mvq8"] = torch.stack([plane(res.mv8[..., 0], 8),
+                                    plane(res.mv8[..., 1], 8)], -1)
+        host = {k: v.cpu().numpy() for k, v in maps.items()}
+        coef_h = [c.to(torch.int32).cpu().numpy() for c in coef]
+        intra8 = None
+        if host["intra8"].any():
+            # normative re-code of intra CUs from reconstructed
+            # neighbours, patching the recon and level planes in z-order
+            intra8 = maps["intra8"]
+            rec_h = [p.to(torch.int32).cpu().numpy() for p in rec]
+            intra_p.patch_intra_cus(
+                pf.y, pf.cb, pf.cr, *rec_h, *coef_h, host["depth8"],
+                host["intra8"], host["imode8"], frame_qp, W, H,
+                rdoq=cfg.rdoq)
+            rec = [torch.as_tensor(p).to(self.device) for p in rec_h]
+            coef[0] = torch.as_tensor(coef_h[0]).to(self.device)
+        sao_params = None
+        if cfg.deblock:
+            rec = deblock.deblock_frame_inter(
+                *rec, maps["depth8"], maps["mvq8"], coef[0], frame_qp,
+                ref8=maps["ref8"], intra8=intra8)
+        if cfg.sao:
+            sao_params = sao.estimate_frame(*cur, *rec, frame_qp)
+            rec = sao.apply_frame(*rec, sao_params)
+        ref = tuple(p.to(torch.int32) for p in rec)
+        out = Frame(*(p.to(torch.uint8).cpu().numpy() for p in rec))
+        if marks is not None:
+            marks.append(time.perf_counter())
+        bw = headers.start_p_slice(cfg, frame_qp, poc, n_act)
+        chunk = self._p_slice_nal(
+            bw, host["depth8"], host["mvq8"], *coef_h, frame_qp, sao_params,
+            ref8=host["ref8"], n_refs=n_act, poc=poc,
+            intra8=host["intra8"] if intra8 is not None else None,
+            imode8=host["imode8"])
+        if marks is not None:
+            marks.append(time.perf_counter())
+        return out, ref, chunk
 
     def _encode_flat(self, pf, prev, poc, frame_qp, times=None):
         """One flat-tree P frame. pf: the padded host Frame; prev: the

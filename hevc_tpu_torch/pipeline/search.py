@@ -288,6 +288,23 @@ def forced_depth_floor(pad_w: int, pad_h: int) -> int:
     return 3
 
 
+def gate_max_depth(hcpm_probs, thr, pad_w: int, pad_h: int) -> int:
+    """Deepest CU level any HCPM split gate leaves open this frame (a
+    host-side scalar that narrows the frame's search: the `max_depth` of
+    `search_frame` and `psearch.p_search_frame`), floored at the
+    forced-split depth of the padded frame."""
+    cs = hcpm_lib.split_gates(hcpm_probs, thr)[1].cpu()
+    if cs[:, 5:21].any():
+        md = 3
+    elif cs[:, 1:5].any():
+        md = 2
+    elif cs[:, 0].any():
+        md = 1
+    else:
+        md = 0
+    return max(md, forced_depth_floor(pad_w, pad_h))
+
+
 def search_frame(y_plane, ctu_origins, *, pad_w, pad_h, n_ctu_x, qp,
                  hcpm_probs: Optional[torch.Tensor] = None,
                  thr_up=(1.1, 1.1, 1.1), thr_down=(-0.1, -0.1, -0.1),

@@ -26,6 +26,7 @@ from hevc_tpu_torch.core.yuv import Frame, pad_frame
 from hevc_tpu_torch.entropy.headers import EncoderConfig
 from hevc_tpu_torch.ops.sao import SaoParams
 from hevc_tpu_torch.pipeline import pframe as t_pframe
+from hevc_tpu_torch.pipeline import psearch as t_psearch
 
 from tests.test_e2e_bitstream import synth_frame
 
@@ -91,19 +92,22 @@ def _assert_frames_equal(a, b):
                                       err_msg=p)
 
 
-# ----------------------------------------------------- _tile_tu_transform
+# ------------------------------------- the flat tree's residual transform
 
 @pytest.mark.parametrize("qp", [22, 37])
 @pytest.mark.parametrize("rdoq", [True, False])
 @pytest.mark.parametrize("size,tu,is_luma", [(64, 32, True),
                                              (32, 16, False)])
 def test_tile_tu_transform_matches_jax(size, tu, is_luma, rdoq, qp):
+    """`psearch._tu_transform` at the flat tree's lambda of the QP given
+    against the JAX `pframe._tile_tu_transform`."""
     rng = np.random.RandomState(size + qp + rdoq)
     tiles = (rng.laplace(0, 12.0, (2, size, size))
              + 20 * np.sin(np.arange(size) / 5.0)[None, :, None])
     tiles = np.clip(np.round(tiles), -255, 255).astype(np.int32)
-    got = t_pframe._tile_tu_transform(torch.from_numpy(tiles), qp, tu,
-                                      rdoq=rdoq, is_luma=is_luma)
+    got = t_psearch._tu_transform(torch.from_numpy(tiles), qp, tu,
+                                  t_pframe._qp_lambda(qp), rdoq,
+                                  is_luma=is_luma)
     want = jax.jit(functools.partial(j_pframe._tile_tu_transform, qp=qp,
                                      tu=tu, rdoq=rdoq,
                                      is_luma=is_luma))(tiles)

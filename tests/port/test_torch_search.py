@@ -43,7 +43,7 @@ def _frame(w, h, seed):
 def _probs(B, seed, max_depth):
     """HCPM probabilities well away from the 0.5 gates, some closed; the
     gates below `max_depth` all closed, as the caller of a narrowed
-    search guarantees (AIEncoder._gate_max_depth)."""
+    search guarantees (search.gate_max_depth)."""
     rng = np.random.RandomState(seed)
     p = np.where(rng.rand(B, 21) < 0.6, 0.8, 0.2).astype(np.float32)
     p[:, 0] = 0.9
