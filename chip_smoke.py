@@ -28,7 +28,14 @@ rect_pu=False)` (quadtree inter search with merge/skip and intra-in-P,
 which runs the SATD kernel twice per P-frame; HM decode; its P-frames
 timed by stage; the shares of CUs by size and mode; the first three
 frames again with deblocking and SAO) and holds its 416x240 stream equal
-to the CPU's, and prints one JSON object per phase. The last line is
+to the CPU's, then drives the JAX encoder's default operating point,
+`LDPEncoder(cfg)` with rectangular PUs and four references, on eight
+1080p frames of a clip whose bands move in opposite directions (HM
+decode; both rectangular shapes and references other than the newest
+must be chosen; the first three frames again with deblocking and SAO)
+and against the CPU at 416x240, and under a picture-level
+`RateController` on the structured 1080p clip (HM decode) and against
+the CPU at 416x240, and prints one JSON object per phase. The last line is
 `{"ok": true, "device": {...}}`; any failed phase ends the run with a
 non-zero exit code and no such line. Without a CUDA device it fails at
 once.
@@ -962,12 +969,13 @@ def check_full_launches(launches, p_frames, of):
 
 
 def record_searches(enc):
-    """Wrap enc.finish_p_frame: keep each P-frame's depth map and CU mode
-    map (device tensors). Returns the list they go in."""
+    """Wrap enc.finish_p_frame: keep each P-frame's depth, CU mode, PU
+    partition and reference index maps (device tensors). Returns the list
+    they go in."""
     seen, finish = [], enc.finish_p_frame
 
     def wrapped(pf, cur, res, *a, **k):
-        seen.append((res.depth8, res.mode8))
+        seen.append((res.depth8, res.mode8, res.part8, res.ref8))
         return finish(pf, cur, res, *a, **k)
 
     enc.finish_p_frame = wrapped
@@ -980,7 +988,7 @@ def cu_shares(seen):
     from hevc_tpu_torch.pipeline import psearch
     by_depth = np.zeros(4)
     by_mode = np.zeros(4)
-    for d8, m8 in seen:
+    for d8, m8, *_ in seen:
         d8, m8 = d8.cpu().numpy(), m8.cpu().numpy()
         for d in range(4):
             at = d8 == d
@@ -992,6 +1000,30 @@ def cu_shares(seen):
              psearch.SKIP: "skip", psearch.INTRA: "intra"}
     return ({str(64 >> d): by_depth[d] / n for d in range(4)},
             {names[m]: by_mode[m] / n for m in range(4)}, int(n))
+
+
+def pu_ref_shares(seen):
+    """Shares of the P-frames' CUs by PU shape, and of their inter 8x8
+    units by reference index; the 8x8 units of each rectangular shape and
+    of references other than the newest."""
+    from hevc_tpu_torch.pipeline import psearch
+    by_part, by_ref = np.zeros(3), {}
+    units = {"2NxN": 0, "Nx2N": 0, "ref_above_0": 0}
+    for d8, m8, p8, r8 in seen:
+        d8, m8, p8, r8 = (x.cpu().numpy() for x in (d8, m8, p8, r8))
+        cu_part = 1.0 / (8 >> d8) ** 2      # each unit's part of its CU
+        for k in range(3):
+            by_part[k] += cu_part[p8 == k].sum()
+        refs, counts = np.unique(r8[m8 != psearch.INTRA], return_counts=True)
+        for r, c in zip(refs, counts):
+            by_ref[int(r)] = by_ref.get(int(r), 0) + int(c)
+        units["2NxN"] += int((p8 == 1).sum())
+        units["Nx2N"] += int((p8 == 2).sum())
+        units["ref_above_0"] += int((r8 > 0).sum())
+    n_inter = max(sum(by_ref.values()), 1)
+    return ({k: by_part[i] / by_part.sum()
+             for i, k in enumerate(("2Nx2N", "2NxN", "Nx2N"))},
+            {str(r): c / n_inter for r, c in sorted(by_ref.items())}, units)
 
 
 def slice_bytes(stream):
@@ -1006,43 +1038,42 @@ def slice_bytes(stream):
     return out
 
 
-def check_ldp_full_1080p(frames, cnn):
-    """Eight 1080p frames through the ETH-LSTM-gated CU-tree
-    `LDPEncoder(tree="full", rect_pu=False)` (filters off): HM decode,
-    both kernels counted (K1 twice per P-frame through intra-in-P),
-    each P-frame timed by stage (pre-encode + LSTM step, search, finish,
-    coder), the shares of CUs by depth and mode, then one warm P-frame's
-    device kernels, busy time and peak memory above what stays resident.
-    Returns the kernels' launches on this path."""
-    enc = full_encoder(1920, 1080, cnn)
+def full_tree_run(enc, frames, of, rate_control=None):
+    """`enc.encode(frames)` of a CU-tree `LDPEncoder` at 1080p: HM decode,
+    both kernels counted (K1 twice per P-frame through intra-in-P), each
+    P-frame timed by stage (pre-encode + LSTM step, search, finish,
+    coder), the shares of CUs by depth and mode, the run's peak memory,
+    then one warm P-frame's device kernels, busy time and peak memory
+    above what stays resident. Returns (the record to print, launches,
+    the searches seen)."""
     seen = record_searches(enc)
     p_frames, last, encode_full = [], [], enc._encode_full
 
-    def timed(pf, prev, poc, qp, times):
+    def timed(pf, dpb, poc, qp, times):
         t0 = time.perf_counter()
-        out = encode_full(pf, prev, poc, qp, times)
+        out = encode_full(pf, dpb, poc, qp, times)
         p_frames.append({"poc": poc, "wall_ms": (time.perf_counter() - t0)
                          * 1e3, **{k[:-2] + "_ms": v * 1e3
                                    for k, v in times.items()}})
-        last[:] = [pf, prev, poc, qp]
+        last[:] = [pf, dpb, poc, qp]
         return out
 
     enc._encode_full = timed
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames)
+    stream, recons, stats = enc.encode(frames, rate_control=rate_control)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = kernel_launches()
-    check_full_launches(launches, len(frames) - 1, "ldp_full_1080p")
-    psnrs = ldp_psnr_check(frames, recons, "ldp_full_1080p")
-    if enc.frame_qps != [32, 35, 34, 35, 33, 35, 34, 35]:
-        fail(f"ldp_full_1080p: frame QPs {enc.frame_qps}")
-    hm_check(stream, recons, 1920, 1080, "ldp_full_1080p")
+    check_full_launches(launches, len(frames) - 1, of)
+    psnrs = ldp_psnr_check(frames, recons, of)
+    hm_check(stream, recons, 1920, 1080, of)
     by_depth, by_mode, n_cu = cu_shares(seen)
     # one warm P-frame again: its peak device memory above what stays
-    # resident (the networks, the reference picture), its device work
+    # resident (the networks, the reference pictures), its device work
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1050,50 +1081,66 @@ def check_ldp_full_1080p(frames, cnn):
     p_peak = torch.cuda.max_memory_allocated() - resident
     kernels, copies, busy_ms = device_kernels(lambda: encode_full(*last))
     if kernels == 0:
-        fail("ldp_full_1080p: the profiler saw no device kernel")
+        fail(f"{of}: the profiler saw no device kernel")
     warm = p_frames[1:]
-    say({"phase": "ldp_full_1080p", "frames": len(frames),
-         "size": "1920x1080",
-         "padded": f"{enc.cfg.pad_width}x{enc.cfg.pad_height}",
-         "tree": "full", "rect_pu": False,
-         "cnn": os.path.basename(WEIGHTS),
-         "lstm": os.path.basename(LSTM_WEIGHTS),
-         "frame_qps": enc.frame_qps, "bytes": len(stream),
-         "slice_bytes": slice_bytes(stream), "psnr_y": psnrs,
-         "wall_s": wall, **stats, "p_frame_ms": p_frames,
-         "warm_p_frame_median_ms": {
-             k: float(np.median([t[k] for t in warm]))
-             for k in ("wall_ms", "predict_ms", "search_ms", "recon_ms",
-                       "entropy_ms")},
-         "p_frame_device_kernels": kernels,
-         "p_frame_copies_and_fills": copies,
-         "p_frame_device_busy_ms": busy_ms,
-         "p_frame_peak_device_bytes_above_resident": p_peak,
-         "p_frame_cus": n_cu, "cu_share_by_size": by_depth,
-         "cu_share_by_mode": by_mode,
-         "satd35_launches": launches["satd35"],
-         "recon_frame_launches": launches["recon_frame"]})
+    record = {
+        "phase": of, "frames": len(frames), "size": "1920x1080",
+        "padded": f"{enc.cfg.pad_width}x{enc.cfg.pad_height}",
+        "tree": "full", "rect_pu": enc.rect_pu,
+        "num_refs": enc.cfg.num_refs, "cnn": os.path.basename(WEIGHTS),
+        "lstm": os.path.basename(LSTM_WEIGHTS),
+        "frame_qps": enc.frame_qps, "bytes": len(stream),
+        "slice_bytes": slice_bytes(stream), "psnr_y": psnrs,
+        "wall_s": wall, **stats, "p_frame_ms": p_frames,
+        "warm_p_frame_median_ms": {
+            k: float(np.median([t[k] for t in warm]))
+            for k in ("wall_ms", "predict_ms", "search_ms", "recon_ms",
+                      "entropy_ms")},
+        "p_frame_device_kernels": kernels,
+        "p_frame_copies_and_fills": copies,
+        "p_frame_device_busy_ms": busy_ms,
+        "peak_device_bytes": peak,
+        "p_frame_peak_device_bytes_above_resident": p_peak,
+        "p_frame_cus": n_cu, "cu_share_by_size": by_depth,
+        "cu_share_by_mode": by_mode,
+        "satd35_launches": launches["satd35"],
+        "recon_frame_launches": launches["recon_frame"]}
+    return record, launches, seen
+
+
+def check_ldp_full_1080p(frames, cnn):
+    """Eight 1080p frames through the ETH-LSTM-gated CU-tree
+    `LDPEncoder(tree="full", rect_pu=False)` (filters off), as
+    `full_tree_run` sets out. Returns the kernels' launches on this
+    path."""
+    record, launches, _ = full_tree_run(full_encoder(1920, 1080, cnn),
+                                        frames, "ldp_full_1080p")
+    if record["frame_qps"] != [32, 35, 34, 35, 33, 35, 34, 35]:
+        fail(f"ldp_full_1080p: frame QPs {record['frame_qps']}")
+    say(record)
     return launches
 
 
-def check_ldp_full_filters_1080p(frames, cnn):
-    """The first three 1080p frames through the full tree with deblocking
-    and SAO on: HM decode, the kernels' launches."""
-    enc = full_encoder(1920, 1080, cnn, deblock=True, sao=True)
+def check_ldp_full_filters_1080p(frames, cnn, make=None,
+                                 of="ldp_full_filters_1080p"):
+    """The first three 1080p frames through the full tree (`make`, default
+    `full_encoder`) with deblocking and SAO on: HM decode, the kernels'
+    launches."""
+    enc = (make or full_encoder)(1920, 1080, cnn, deblock=True, sao=True)
     reset_launches()
     t0 = time.perf_counter()
     stream, recons, stats = enc.encode(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
-    check_full_launches(launches, len(frames) - 1, "ldp_full_filters_1080p")
-    psnrs = ldp_psnr_check(frames, recons, "ldp_full_filters_1080p")
-    hm_check(stream, recons, 1920, 1080, "ldp_full_filters_1080p")
-    say({"phase": "ldp_full_filters_1080p", "frames": len(frames),
-         "deblock": True, "sao": True, "frame_qps": enc.frame_qps,
-         "bytes": len(stream), "slice_bytes": slice_bytes(stream),
-         "psnr_y": psnrs, "wall_s": wall, **stats,
-         "satd35_launches": launches["satd35"],
+    check_full_launches(launches, len(frames) - 1, of)
+    psnrs = ldp_psnr_check(frames, recons, of)
+    hm_check(stream, recons, 1920, 1080, of)
+    say({"phase": of, "frames": len(frames), "rect_pu": enc.rect_pu,
+         "num_refs": enc.cfg.num_refs, "deblock": True, "sao": True,
+         "frame_qps": enc.frame_qps, "bytes": len(stream),
+         "slice_bytes": slice_bytes(stream), "psnr_y": psnrs, "wall_s": wall,
+         **stats, "satd35_launches": launches["satd35"],
          "recon_frame_launches": launches["recon_frame"]})
     return launches
 
@@ -1116,7 +1163,7 @@ def check_ldp_full_card_vs_cpu(cnn, cnn_cpu):
         out[dev] = enc.encode(frames)[:2] + (enc.frame_qps, seen)
     if out["cuda"][0] != out["cpu"][0] or out["cuda"][2] != out["cpu"][2]:
         fail("ldp_full_card_vs_cpu: the card's stream differs from the CPU's")
-    seen = [(d.cpu().numpy(), m.cpu().numpy()) for d, m in out["cuda"][3]]
+    seen = [(d.cpu().numpy(), m.cpu().numpy()) for d, m, *_ in out["cuda"][3]]
     intra = sum(int((m == psearch.INTRA).sum()) for _, m in seen)
     merged = sum(int(np.isin(m, (psearch.MERGE, psearch.SKIP)).sum())
                  for _, m in seen)
@@ -1130,6 +1177,115 @@ def check_ldp_full_card_vs_cpu(cnn, cnn_cpu):
          "frame_qps": out["cuda"][2], "bytes": len(out["cuda"][0]),
          "identical": True, "units_intra": intra,
          "units_merge_or_skip": merged, "units_in_split_cus": split})
+
+
+def rect_encoder(w, h, cnn, device=None, num_refs=4, **cfg_kw):
+    """The JAX encoder's default operating point: `LDPEncoder(cfg)` with
+    `tree="full"`, `rect_pu=True` and `cfg.num_refs` references at QP 32,
+    gated by the shipped ETH-LSTM (cfg_kw: deblock, sao)."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.pipeline.pframe import LDPEncoder
+    return LDPEncoder(EncoderConfig(w, h, qp=32, num_refs=num_refs,
+                                    **cfg_kw),
+                      cnn=cnn, lstm_params=ldp_lstm_params(), device=device)
+
+
+def check_rect_exercised(seen, of):
+    """Both rectangular PU shapes and a reference other than the newest
+    were chosen somewhere in `seen`. Returns the shares and counts."""
+    by_part, by_ref, units = pu_ref_shares(seen)
+    if not (units["2NxN"] and units["Nx2N"] and units["ref_above_0"]):
+        fail(f"{of}: 8x8 units in 2NxN CUs {units['2NxN']}, in Nx2N CUs "
+             f"{units['Nx2N']}, with refIdx > 0 {units['ref_above_0']}: a "
+             "branch was not exercised")
+    return {"cu_share_by_pu_shape": by_part,
+            "inter_unit_share_by_ref_idx": by_ref, "units": units}
+
+
+def check_ldp_rect_1080p(frames, cnn):
+    """Eight 1080p frames of the shear clip through the JAX encoder's
+    default operating point, `LDPEncoder(cfg)` with rectangular PUs and
+    four references, ETH-LSTM-gated, filters off, as `full_tree_run`
+    sets out; fails unless both rectangular shapes and a reference other
+    than the newest were chosen. Returns the kernels' launches."""
+    record, launches, seen = full_tree_run(rect_encoder(1920, 1080, cnn),
+                                           frames, "ldp_rect_1080p")
+    if record["frame_qps"] != [32, 35, 34, 35, 33, 35, 34, 35]:
+        fail(f"ldp_rect_1080p: frame QPs {record['frame_qps']}")
+    say({**record, **check_rect_exercised(seen, "ldp_rect_1080p")})
+    return launches
+
+
+def check_ldp_rect_card_vs_cpu(cnn, cnn_cpu):
+    """The card's stream of the default operating point against the
+    CPU's: four 416x240 frames of the shear clip (448x256 coded), two
+    references, ETH-LSTM-gated, deblocking and SAO on. Fails unless both
+    rectangular shapes and a reference other than the newest were
+    chosen."""
+    from hevc_tpu_torch.pipeline import bench_hooks
+    frames = bench_hooks.synth_shear(4, 416, 240)
+    out = {}
+    for dev, net in (("cuda", cnn), ("cpu", cnn_cpu)):
+        enc = rect_encoder(416, 240, net, device=dev, num_refs=2,
+                           deblock=True, sao=True)
+        seen = record_searches(enc)
+        out[dev] = enc.encode(frames)[:2] + (enc.frame_qps, seen)
+    if out["cuda"][0] != out["cpu"][0] or out["cuda"][2] != out["cpu"][2]:
+        fail("ldp_rect_card_vs_cpu: the card's stream differs from the CPU's")
+    say({"phase": "ldp_rect_card_vs_cpu", "size": "416x240",
+         "padded": "448x256", "frames": len(frames), "num_refs": 2,
+         "lstm": True, "deblock": True, "sao": True,
+         "frame_qps": out["cuda"][2], "bytes": len(out["cuda"][0]),
+         "identical": True,
+         **check_rect_exercised(out["cuda"][3], "ldp_rect_card_vs_cpu")})
+
+
+def rc_moves(qps, init_qp, of):
+    """Fails unless the controller's QP left `init_qp` in two pictures."""
+    if sum(q != init_qp for q in qps) < 2:
+        fail(f"{of}: the QP did not move ({qps})")
+
+
+def check_ldp_rc_1080p(frames, cnn, target_bps=10_000_000):
+    """The eight structured 1080p frames through the default operating
+    point under a picture-level RateController: as `full_tree_run` sets
+    out (HM decode included), the QP moving. Returns the kernels'
+    launches."""
+    from hevc_tpu_torch.pipeline.ratectrl import RateController
+    rc = RateController(target_bps, 30, 1920, 1080, len(frames), init_qp=32)
+    record, launches, _ = full_tree_run(rect_encoder(1920, 1080, cnn),
+                                        frames, "ldp_rc_1080p",
+                                        rate_control=rc)
+    rc_moves(record["frame_qps"], 32, "ldp_rc_1080p")
+    say({**record, "target_bps": target_bps, "fps": 30,
+         "target_bits": target_bps * len(frames) / 30,
+         "bits": 8 * record["bytes"],
+         "slice_bits_target_per_picture": target_bps / 30})
+    return launches
+
+
+def check_ldp_rc_card_vs_cpu(cnn, cnn_cpu, target_bps=500_000):
+    """The default operating point under a RateController on four
+    416x240 structured frames (448x256 coded): the card's stream and QPs
+    equal the CPU's, the QP moves."""
+    from hevc_tpu_torch.pipeline import bench_hooks
+    from hevc_tpu_torch.pipeline.ratectrl import RateController
+    frames = bench_hooks.synth_structured(4, 19, 416, 240)
+    out = {}
+    for dev, net in (("cuda", cnn), ("cpu", cnn_cpu)):
+        enc = rect_encoder(416, 240, net, device=dev)
+        rc = RateController(target_bps, 30, 416, 240, len(frames),
+                            init_qp=32)
+        out[dev] = enc.encode(frames, rate_control=rc)[0], enc.frame_qps
+    if out["cuda"] != out["cpu"]:
+        fail(f"ldp_rc_card_vs_cpu: card QPs {out['cuda'][1]}, CPU QPs "
+             f"{out['cpu'][1]}, streams equal "
+             f"{out['cuda'][0] == out['cpu'][0]}")
+    rc_moves(out["cuda"][1], 32, "ldp_rc_card_vs_cpu")
+    say({"phase": "ldp_rc_card_vs_cpu", "size": "416x240",
+         "padded": "448x256", "frames": len(frames), "num_refs": 4,
+         "target_bps": target_bps, "fps": 30, "frame_qps": out["cuda"][1],
+         "bytes": len(out["cuda"][0]), "identical": True})
 
 
 def main():
@@ -1360,7 +1516,21 @@ def main():
     full_filt_launches = check_ldp_full_filters_1080p(ldp_frames[:3], cnn)
     check_ldp_full_card_vs_cpu(cnn, cnn_cpu)
 
-    # 15. the kernels of the main paths. satd35: times are sums over the
+    # 15. the JAX encoder's default LDPEncoder(cfg): rectangular PUs, four
+    # references, ETH-LSTM-gated, on eight 1080p frames of the shear clip
+    # (HM decode), the first three with deblocking and SAO (HM decode),
+    # the card's 416x240 stream against the CPU's; then under a
+    # picture-level RateController on the structured clip (HM decode),
+    # and card against CPU at 416x240
+    shear = bench_hooks.synth_shear(8, 1920, 1080)
+    rect_launches = check_ldp_rect_1080p(shear, cnn)
+    rect_filt_launches = check_ldp_full_filters_1080p(
+        shear[:3], cnn, rect_encoder, "ldp_rect_filters_1080p")
+    check_ldp_rect_card_vs_cpu(cnn, cnn_cpu)
+    rc_ldp_launches = check_ldp_rc_1080p(ldp_frames, cnn)
+    check_ldp_rc_card_vs_cpu(cnn, cnn_cpu)
+
+    # 16. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
@@ -1374,7 +1544,12 @@ def main():
         "LDPEncoder.encode flat 1080p": ldp_launches[name],
         "LDPEncoder.encode flat deblock+sao 1080p": ldp_filt_launches[name],
         "LDPEncoder.encode full 1080p": full_launches[name],
-        "LDPEncoder.encode full deblock+sao 1080p": full_filt_launches[name]}
+        "LDPEncoder.encode full deblock+sao 1080p": full_filt_launches[name],
+        "LDPEncoder.encode rect 4 refs 1080p": rect_launches[name],
+        "LDPEncoder.encode rect 4 refs deblock+sao 1080p":
+            rect_filt_launches[name],
+        "LDPEncoder.encode rect 4 refs rate_control 1080p":
+            rc_ldp_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

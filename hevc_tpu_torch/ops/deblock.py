@@ -61,22 +61,19 @@ def edge_masks(depth8, part8=None):
     left / top border of each 8x8 cell (TU/CU boundaries, bS=2 intra).
 
     part8: optional [H8, W8] inter PU partition per cell (0 = 2Nx2N,
-    1 = 2NxN, 2 = Nx2N). Rectangular PUs add a prediction-boundary edge
-    through the CU middle (8.7.2.2 prediction block edges)."""
-    t8 = tu_size8(depth8)
+    1 = 2NxN, 2 = Nx2N). A rectangular CU's TU splits once (`tu_size8`),
+    so every TU edge inside it is an edge (8.7.2.3), its prediction
+    edge through the CU middle (8.7.2.2) among them. The reference's
+    `edge_masks` takes the TU size of the depth alone and adds only the
+    prediction edge, leaving the other inner TU edge of a 16x16 or 32x32
+    rectangular CU unfiltered, which HM filters (ROADMAP Queue 3)."""
+    t8 = tu_size8(depth8, part8)
     dev = t8.device
     h8, w8 = t8.shape
     x8 = torch.arange(w8, device=dev)[None, :]
     y8 = torch.arange(h8, device=dev)[:, None]
     vert = ((x8 * 8) % t8 == 0) & (x8 > 0)
     horz = ((y8 * 8) % t8 == 0) & (y8 > 0)
-    if part8 is not None:
-        p = _t(part8, dev)
-        cu = 64 >> _t(depth8, dev)
-        ox = (x8 * 8) % cu
-        oy = (y8 * 8) % cu
-        vert = vert | ((p == 2) & (ox == cu // 2) & (x8 > 0))
-        horz = horz | ((p == 1) & (oy == cu // 2) & (y8 > 0))
     return vert, horz
 
 

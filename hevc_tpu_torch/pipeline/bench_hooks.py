@@ -43,6 +43,37 @@ def synth_1080p_structured(n_frames=2, seed=7):
     return synth_structured(n_frames, seed, 1920, 1080)
 
 
+def synth_shear(n_frames, width, height, seed=5):
+    """Content on which the P search takes rectangular PUs and older
+    references (modelled on the JAX tests' `shear_clip`): a static
+    textured picture whose upper band moves right and lower band left by
+    3 samples a frame, the band edge at 32 rows into a CTU row, the left
+    quarter also moving down by 2, and on the right quarter a texture
+    that moves with the picture and alternates between two patterns
+    from frame to frame, so that there the picture two back matches
+    better than the previous one."""
+    rng = np.random.RandomState(seed)
+    h, w = height, width
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 100 + 50 * np.sin(xx / 17.0) * np.cos(yy / 11.0)
+    tex = rng.randint(-15, 16, (h, w)).astype(np.float32)
+    flicker = rng.randint(-20, 21, (2, h, w - 3 * w // 4)
+                          ).astype(np.float32)
+    edge = h // 2 // 64 * 64 + 32
+    out = []
+    for t in range(n_frames):
+        y = base + tex
+        y[:, 3 * w // 4:] += flicker[t % 2]
+        y[:edge] = np.roll(y[:edge], 3 * t, axis=1)
+        y[edge:] = np.roll(y[edge:], -3 * t, axis=1)
+        y[:, :w // 4] = np.roll(y[:, :w // 4], 2 * t, axis=0)
+        y = np.clip(y, 0, 255).astype(np.uint8)
+        cb = np.full((h // 2, w // 2), 120, np.uint8)
+        cr = np.full((h // 2, w // 2), 135, np.uint8)
+        out.append(Frame(y, cb, cr))
+    return out
+
+
 def random_legal_decisions(pad_w, pad_h, seed):
     """Seeded random but legal decisions for a coded frame of pad_w x
     pad_h: (depth8, modes8, modes4, nxn8) host arrays with all four

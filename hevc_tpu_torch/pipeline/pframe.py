@@ -2,21 +2,22 @@
 device, then the P-slice CABAC on the host.
 
 `tree="full"` (the default, as in the reference): the HCPM-gated CU-tree
-P search (pipeline/psearch: quadtree ME, AMVP, merge/skip and intra-in-P
-on square PUs) against the previous reconstruction, gated by the
-ETH-LSTM when `lstm_params` is given (pre-encode residue -> HCPM, state
-on the device); intra CUs are then re-coded normatively on the host
-(pipeline/intra_p). `tree="flat"`: every CTU is one inter 2Nx2N 64x64
-CU against the previous reconstruction (the reference pre-encode shape,
+P search (pipeline/psearch: quadtree ME, AMVP, merge/skip, rectangular
+PUs and intra-in-P) against the `cfg.num_refs` newest reconstructions,
+gated by the ETH-LSTM when `lstm_params` is given (pre-encode residue
+against the previous reconstruction -> HCPM, state on the device); intra
+CUs are then re-coded normatively on the host (pipeline/intra_p).
+`tree="flat"`: every CTU is one inter 2Nx2N 64x64 CU against the
+previous reconstruction (the reference pre-encode shape,
 HM-16.5_Resi_Pre/TEncCu.cpp:388-397), the fastest operating point; it
 references the previous picture only, whatever `cfg.num_refs` says, as
-the reference's flat tree does. Rectangular PUs, several references,
-low-delay B and a per-CTU QP are not ported yet and raise.
+the reference's flat tree does. Both trees take a picture-level rate
+controller. Low-delay B and a per-CTU QP are not ported yet and raise.
 
 Inter reconstruction has no spatial dependency, so a whole frame runs as
 one batch of CTU tiles; only the levels, the decision maps and the final
 reconstruction go to the host (for the coder and the hash SEI). The
-reference picture stays on the device.
+reference pictures stay on the device.
 """
 
 from __future__ import annotations
@@ -81,21 +82,23 @@ def encode_p_frame_device(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr, *,
 
 
 class LDPEncoder:
-    """Low-Delay-P sequence encoder: an IDR, then P frames against the
-    previous reconstruction, with the GOP-4 per-frame QP offsets of the
-    reference encoder_lowdelay_P_main.cfg.
+    """Low-Delay-P sequence encoder: an IDR, then P frames against
+    earlier reconstructions, with the GOP-4 per-frame QP offsets of the
+    reference encoder_lowdelay_P_main.cfg (or the QPs of a rate
+    controller, `encode(rate_control=)`).
 
     tree="full" (the default, as in the reference) runs the CU-tree P
-    search (pipeline/psearch) on square PUs; it needs `rect_pu=False`
-    until rectangular PUs are ported. With `lstm_params` (an ETH-LSTM
-    checkpoint's name -> array dict) each P-frame is first pre-encoded
-    against the previous reconstruction and the LSTM's HCPM gates the
-    search (`thresholds`, default hcpm.DEFAULT_LDP); `max_depth_exit`
-    narrows a frame's search to the deepest level a gate leaves open.
-    tree="flat": one inter 2Nx2N 64x64 CU per CTU, the P slices' RDOQ
-    always on, whatever `cfg.rdoq` says, as in the reference.
-    `slice_mode="B"`, `cfg.cu_qp_delta`, and with tree="full"
-    `cfg.num_refs > 1` and `rect_pu=True`, raise.
+    search (pipeline/psearch) against the `cfg.num_refs` newest
+    reconstructions (RefPicList0, newest first), with rectangular PUs
+    unless `rect_pu=False`. With `lstm_params` (an ETH-LSTM checkpoint's
+    name -> array dict) each P-frame is first pre-encoded against the
+    previous reconstruction and the LSTM's HCPM gates the search
+    (`thresholds`, default hcpm.DEFAULT_LDP); `max_depth_exit` narrows a
+    frame's search to the deepest level a gate leaves open.
+    tree="flat": one inter 2Nx2N 64x64 CU per CTU against the previous
+    reconstruction, the P slices' RDOQ always on, whatever `cfg.rdoq`
+    says, as in the reference. `slice_mode="B"` and `cfg.cu_qp_delta`
+    raise.
 
     cnn: an `eth_cnn.EthCnn` for the IDR's decide, or None for the
     ungated search. device=None means the card; with no card that raises
@@ -118,20 +121,13 @@ class LDPEncoder:
             raise NotImplementedError(
                 "cu_qp_delta: a per-CTU QP is not ported yet (ROADMAP "
                 "Queue 1, M11)")
-        if tree == "full" and rect_pu:
-            raise NotImplementedError(
-                "rect_pu=True: rectangular PUs are not ported yet (ROADMAP "
-                "Queue 1, M10b part 3); pass rect_pu=False")
-        if tree == "full" and cfg.num_refs > 1:
-            raise NotImplementedError(
-                f"num_refs={cfg.num_refs}: several references are not "
-                "ported yet (ROADMAP Queue 1, M10b part 4)")
         if cfg.pad_width % 64 or cfg.pad_height % 64:
             # LDP codes whole CTUs only; pad to 64-multiples and crop via
             # the SPS conformance window
             cfg = dataclasses.replace(cfg, pad_align=64)
         self.cfg = cfg
         self.tree = tree
+        self.rect_pu = rect_pu
         self.use_gop_qp = use_gop_qp
         self.device = resolve_device(device)
         self.intra = AIEncoder(cfg, cnn=cnn, device=self.device)
@@ -159,13 +155,21 @@ class LDPEncoder:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def encode(self, frames, with_hash_sei: bool = True):
+    def encode(self, frames, with_hash_sei: bool = True,
+               rate_control=None):
         """Encode a sequence; returns (annexb bytes, recons, stats).
+        rate_control: an optional pipeline/ratectrl.RateController; it
+        picks every picture's QP (the IDR's too, no GOP offsets) and is
+        given each picture's bits, its hash SEI left out.
         stats: decide_s (the IDR's decide; the P frames' pre-encode, LSTM
         step and search, or the flat tree's motion stages), recon_s (the
         IDR's reconstruction; the P frames' transforms or the intra
         re-code, filters and copies to the host), entropy_s (the coders
         and the hash SEI)."""
+        if hasattr(rate_control, "pre_frame_lcu"):
+            raise NotImplementedError(
+                "LCU rate control: a per-CTU QP is not ported yet "
+                "(ROADMAP Queue 1, M11)")
         cfg = self.cfg
         chunks = [headers.write_vps(cfg), headers.write_sps(cfg),
                   headers.write_pps(cfg)]
@@ -177,8 +181,10 @@ class LDPEncoder:
             self.predictor.reset()
         for poc, frame in enumerate(frames):
             pf = pad_frame(frame, cfg.pad_width, cfg.pad_height)
-            frame_qp = self._frame_qp(poc)
+            frame_qp = (rate_control.pre_frame() if rate_control
+                        else self._frame_qp(poc))
             self.frame_qps.append(frame_qp)
+            n_chunks0 = len(chunks)
             if poc == 0:
                 t0 = time.perf_counter()
                 d8, m8, m4, nxn = self.intra.decide_frame_full(
@@ -195,14 +201,20 @@ class LDPEncoder:
                 t_entropy = time.perf_counter() - t2
             else:
                 times = {}
-                p_frame = (self._encode_flat if self.tree == "flat"
-                           else self._encode_full)
-                rec, ref, chunk = p_frame(pf, dpb[0], poc, frame_qp, times)
+                if self.tree == "flat":
+                    rec, ref, chunk = self._encode_flat(pf, dpb[0], poc,
+                                                        frame_qp, times)
+                else:
+                    rec, ref, chunk = self._encode_full(pf, tuple(dpb), poc,
+                                                        frame_qp, times)
                 chunks.append(chunk)
                 stats["decide_s"] += times["decide_s"]
                 stats["recon_s"] += times["recon_s"]
                 t_entropy = times["entropy_s"]
             t0 = time.perf_counter()
+            if rate_control:
+                rate_control.post_frame(
+                    8 * sum(len(c) for c in chunks[n_chunks0:]))
             if with_hash_sei:
                 tid, hs = golden.pic_hashes(rec, cfg.hash_type)
                 chunks.append(headers.write_hash_sei(*hs, hash_type=tid))
@@ -217,25 +229,28 @@ class LDPEncoder:
     def _p_slice_nal(self, bw, depth8, mvq8, coef_y, coef_cb, coef_cr,
                      frame_qp, sao_params=None, **kw):
         """P slice NAL: header bits in `bw`, then the slice data of the
-        native C++ coder (kw: its ref8, n_refs, poc, intra8, imode8). A
-        failure of the coder raises: there is no fallback coder."""
+        native C++ coder (kw: its ref8, n_refs, poc, intra8, imode8,
+        part8). A failure of the coder raises: there is no fallback
+        coder."""
         cfg = self.cfg
         data = native.encode_slice_data_p(
             depth8, mvq8, coef_y, coef_cb, coef_cr, cfg.pad_width,
             cfg.pad_height, frame_qp, sao=sao_params, **kw)
         return nal_unit(NAL_TRAIL_R, bw.get_bytes() + data)
 
-    def _encode_full(self, pf, prev, poc, frame_qp, times=None):
-        """One CU-tree P frame. pf: the padded host Frame; prev: the
-        reference as (y, cb, cr) int32 planes on the device. Returns
-        (padded reconstruction as a host Frame, the same as int32 device
-        planes for the DPB, NAL bytes). times, if given, receives
-        predict_s (pre-encode and LSTM step), search_s, decide_s (their
-        sum), recon_s (`finish_p_frame` but the coder) and entropy_s."""
+    def _encode_full(self, pf, dpb, poc, frame_qp, times=None):
+        """One CU-tree P frame. pf: the padded host Frame; dpb: the
+        reference pictures, newest first, each as (y, cb, cr) int32
+        planes on the device. Returns (padded reconstruction as a host
+        Frame, the same as int32 device planes for the DPB, NAL bytes).
+        times, if given, receives predict_s (pre-encode and LSTM step),
+        search_s, decide_s (their sum), recon_s (`finish_p_frame` but the
+        coder) and entropy_s."""
         cfg = self.cfg
         W, H = cfg.pad_width, cfg.pad_height
         marks = [time.perf_counter()]
         cur = self._upload(pf)
+        prev = dpb[0]
         probs, gate = None, {}
         if self.predictor is not None:
             # the pre-encode against the previous reconstruction
@@ -251,10 +266,14 @@ class LDPEncoder:
             max_depth = search_lib.gate_max_depth(probs, self.predictor.thr,
                                                   W, H)
         n_act = min(poc, cfg.num_refs)
+        # RefPicList0 as [R, H, W] stacks of cfg.num_refs pictures, padded
+        # by repeating the oldest; the search selects the n_act first
+        refs = (list(dpb) + [dpb[-1]] * cfg.num_refs)[:cfg.num_refs]
         res = psearch.p_search_frame(
-            *cur, *(p[None] for p in prev), self._origins, qp=frame_qp,
-            pad_w=W, pad_h=H, use_rdoq=cfg.rdoq, n_active_refs=n_act,
-            max_depth=max_depth, rect_pu=False, **gate)
+            *cur, *(torch.stack([r[c] for r in refs]) for c in range(3)),
+            self._origins, qp=frame_qp, pad_w=W, pad_h=H, use_rdoq=cfg.rdoq,
+            n_active_refs=n_act, max_depth=max_depth, rect_pu=self.rect_pu,
+            **gate)
         self._sync()
         marks.append(time.perf_counter())
         rec, ref, chunk = self.finish_p_frame(pf, cur, res, poc, frame_qp,
@@ -288,11 +307,13 @@ class LDPEncoder:
         coef = [plane(res.coef_y, 64), plane(res.coef_cb, 32),
                 plane(res.coef_cr, 32)]
         maps = {k: plane(getattr(res, k), 8)
-                for k in ("depth8", "ref8", "intra8", "imode8")}
+                for k in ("depth8", "ref8", "intra8", "imode8", "part8")}
         maps["mvq8"] = torch.stack([plane(res.mv8[..., 0], 8),
                                     plane(res.mv8[..., 1], 8)], -1)
         host = {k: v.cpu().numpy() for k, v in maps.items()}
         coef_h = [c.to(torch.int32).cpu().numpy() for c in coef]
+        # None where every CU is 2Nx2N, as the reference passes it
+        part8 = maps["part8"] if host["part8"].any() else None
         intra8 = None
         if host["intra8"].any():
             # normative re-code of intra CUs from reconstructed
@@ -309,7 +330,7 @@ class LDPEncoder:
         if cfg.deblock:
             rec = deblock.deblock_frame_inter(
                 *rec, maps["depth8"], maps["mvq8"], coef[0], frame_qp,
-                ref8=maps["ref8"], intra8=intra8)
+                ref8=maps["ref8"], intra8=intra8, part8=part8)
         if cfg.sao:
             sao_params = sao.estimate_frame(*cur, *rec, frame_qp)
             rec = sao.apply_frame(*rec, sao_params)
@@ -322,7 +343,8 @@ class LDPEncoder:
             bw, host["depth8"], host["mvq8"], *coef_h, frame_qp, sao_params,
             ref8=host["ref8"], n_refs=n_act, poc=poc,
             intra8=host["intra8"] if intra8 is not None else None,
-            imode8=host["imode8"])
+            imode8=host["imode8"],
+            part8=host["part8"] if part8 is not None else None)
         if marks is not None:
             marks.append(time.perf_counter())
         return out, ref, chunk

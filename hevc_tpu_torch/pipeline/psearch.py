@@ -17,15 +17,18 @@ so every depth's full coding (MC, residual, transform, RDOQ, dequant,
 inverse transform, reconstruction) runs batched and the decided depth
 map selects the surviving leaves per 8x8 unit.
 
-Square PUs only: rectangular PUs (`rect_pu=True`) and a per-CTU QP
-raise. Lambda and the motion rates are bit-exact against the reference's
-float32 program (its `exp2` and its fused `2 log2(x) + 1`, emulated on
-the host: `frame_lambda`, `_rate_table`); SSEs are summed exactly and
-rounded once (equal to the reference's float32 sums below 2^24, where
-those are exact); small sums are added in index order. The RD costs can
-still differ from the reference's in their last bits (its program fuses
-products into sums and orders the bit model's dot product its own way),
-so a decision between near-equal costs can differ.
+With `rect_pu` (the default, as in the reference) every CU of 16 to 64
+also weighs the rectangular partitions 2NxN and Nx2N: each half pools
+its exact SAD from the next depth's field and gets its own reference,
+quarter sweep and MC. A per-CTU QP raises. Lambda and the motion rates
+are bit-exact against the reference's float32 program (its `exp2` and
+its fused `2 log2(x) + 1`, emulated on the host: `frame_lambda`,
+`_rate_table`); SSEs are summed exactly and rounded once (equal to the
+reference's float32 sums below 2^24, where those are exact); small sums
+are added in index order. The RD costs can still differ from the
+reference's in their last bits (its program fuses products into sums
+and orders the bit model's dot product its own way), so a decision
+between near-equal costs can differ.
 """
 
 from __future__ import annotations
@@ -61,9 +64,11 @@ class PSearchResult(NamedTuple):
     rec_cr: torch.Tensor    # [B, 32, 32] uint8
     intra8: torch.Tensor    # [B, 8, 8] bool: CU coded intra (intra-in-P)
     imode8: torch.Tensor    # [B, 8, 8] int32 intra luma mode (where intra8)
-    part8: torch.Tensor     # [B, 8, 8] int32 PU partition (0 = 2Nx2N)
+    part8: torch.Tensor     # [B, 8, 8] int32 PU partition of the CU
+    #                         (0 = 2Nx2N, 1 = 2NxN, 2 = Nx2N)
     # beyond the reference's fields, for instrumentation (the coder does
-    # not read it): the mode of the unit's CU (AMVP, MERGE, SKIP, INTRA)
+    # not read it): the mode of the unit's CU (AMVP, MERGE, SKIP, INTRA;
+    # a rectangular CU counts as AMVP, part8 gives its PU shape)
     mode8: torch.Tensor     # [B, 8, 8] int32
 
 
@@ -293,13 +298,10 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
     weighs AMVP against merge and skip; with intra_in_p, intra nodes (the
     All-Intra search's SATD-best mode and RD cost on original-pixel
     references) compete too, their motion is zeroed, and the encoder
-    re-codes them normatively (pipeline/intra_p).
+    re-codes them normatively (pipeline/intra_p). rect_pu: CUs of 16 to
+    64 also weigh 2NxN and Nx2N PUs.
     Returns PSearchResult.
     """
-    if rect_pu:
-        raise NotImplementedError(
-            "rect_pu=True: rectangular PUs are not ported yet (ROADMAP "
-            "Queue 1, M10b part 3); pass rect_pu=False")
     if np.ndim(qp) != 0:
         raise NotImplementedError(
             "a per-CTU QP is not ported yet (ROADMAP Queue 1, M11)")
@@ -312,7 +314,7 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
     lam32, sqrt_lam32, dist_w32 = frame_lambda(qp)
     lam = float(lam32)
     cqp = quant.chroma_qp(qp)
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     # ref_idx_l0 TU bin count per value (cMax = n_act - 1)
     ref_bits_tab = torch.tensor(
         [min(i + 1, max(n_act - 1, 1)) if n_act > 1 else 0
@@ -334,15 +336,36 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
         sad_by_depth[d] = s_.reshape(r_, c, b, n // 2, 2, n // 2, 2
                                      ).sum((4, 6), dtype=torch.int32)
     rate_tab = _rate_table(dev)
+    active = torch.arange(R, device=dev)[:, None] < n_act
+
+    def choose(sads):
+        """[R, n_cand, N] integer SADs -> (ref_sel [N], integer MV
+        [N, 2]): each reference's best MV (first minimum), then the
+        reference by SAD + sqrt(lambda) * (ref_idx bins + rough MV rate),
+        the first minimum among the active ones."""
+        best = torch.argmin(sads, dim=1)                 # [R, N]
+        sad_best = sads.amin(dim=1).to(f32)
+        mv_r = torch.stack([best % n_side - RADIUS,
+                            best // n_side - RADIUS], -1).to(i32)
+        mv_rate = rate_tab[mv_r.abs().sum(-1).long()]
+        cost = sad_best + float(sqrt_lam32) * (ref_bits_tab[:, None]
+                                               + mv_rate)
+        cost = torch.where(active, cost, torch.full_like(cost, _INF))
+        ref_sel = torch.argmin(cost, dim=0).to(i32)
+        mv = torch.gather(mv_r, 0,
+                          ref_sel.long()[None, :, None].expand(1, -1, 2))[0]
+        return ref_sel, mv
 
     # --- per-depth node ME + coding ----------------------------------------
     nx_ctu = -(-pad_w // 64)
     mv_maps, ref_maps, intra_maps, imode_maps, cost_maps = {}, {}, {}, {}, {}
     mode_maps = {}
+    # PU partition (0 = 2Nx2N, 1 = 2NxN, 2 = Nx2N) and the second PU's
+    # motion (where the partition is not 0)
+    part_maps, mv2_maps, ref2_maps = {}, {}, {}
     lvl_d = {c: {} for c in ("y", "cb", "cr")}
     rr_d = {c: {} for c in ("y", "cb", "cr")}
     pred_d = {c: {} for c in ("y", "cb", "cr")}
-    i32 = torch.int32
     max_depth = min(3, max(max_depth,
                            search_lib.forced_depth_floor(pad_w, pad_h)))
     for d in range(4):
@@ -358,27 +381,15 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
                                         device=dev)
             imode_maps[d] = torch.ones((B, n, n), dtype=i32, device=dev)
             cost_maps[d] = torch.full((B, nd), _INF, dtype=f32, device=dev)
-            mode_maps[d] = torch.zeros((B, n, n), dtype=i32, device=dev)
+            mode_maps[d] = part_maps[d] = ref2_maps[d] = ref_maps[d]
+            mv2_maps[d] = mv_maps[d]
             for c, size in (("y", s), ("cb", s // 2), ("cr", s // 2)):
                 z = torch.zeros((B * nd, size, size), dtype=i32, device=dev)
                 lvl_d[c][d] = rr_d[c][d] = pred_d[c][d] = z
             continue
 
-        sads = sad_by_depth[d].reshape(R, n_side * n_side, B * nd)
-        best = torch.argmin(sads, dim=1)                 # [R, B*nd]
-        sad_best = sads.amin(dim=1).to(f32)
-        mv_int_r = torch.stack([best % n_side - RADIUS,
-                                best // n_side - RADIUS], -1).to(i32)
-        # ref choice: SAD + sqrt(lambda) * (ref_idx bins + rough MV rate)
-        mv_rate = rate_tab[mv_int_r.abs().sum(-1).long()]
-        ref_cost = sad_best + float(sqrt_lam32) * (ref_bits_tab[:, None]
-                                                   + mv_rate)
-        active = torch.arange(R, device=dev)[:, None] < n_act
-        ref_cost = torch.where(active, ref_cost,
-                               torch.full_like(ref_cost, _INF))
-        ref_sel = torch.argmin(ref_cost, dim=0).to(i32)  # [B*nd]
-        mv_int = torch.gather(
-            mv_int_r, 0, ref_sel.long()[None, :, None].expand(1, -1, 2))[0]
+        ref_sel, mv_int = choose(
+            sad_by_depth[d].reshape(R, n_side * n_side, B * nd))
 
         node_org = _node_origins(ctu_origins, d)
         corg = _node_origins(ctu_origins, d, chroma=True)
@@ -390,12 +401,11 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
         mv_maps[d] = mv_q.reshape(B, n, n, 2)
         ref_maps[d] = ref_sel.reshape(B, n, n)
 
-        def code(p_y, p_cb, p_cr):
-            """Residual coding of the node at predictions p_*: (levels,
-            recon residuals, per-plane bits, SSE of the reconstruction).
-            bits [N] float32 = the weights model's rate estimate
-            (ops/bits) summed over the node's TUs."""
-            tu = min(s, 32)
+        def code(p_y, p_cb, p_cr, tu=min(s, 32)):
+            """Residual coding of the node at predictions p_* with luma
+            TUs of `tu`: (levels, recon residuals, per-plane bits, SSE of
+            the reconstruction). bits [N] float32 = the weights model's
+            rate estimate (ops/bits) summed over the node's TUs."""
             out = []
             sse = None
             for cur_b, p, q, t, luma in (
@@ -481,6 +491,83 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
             rr_d[c][d] = pick(rr, rr_m, z)
             pred_d[c][d] = pick(p, p_m, p_m)
 
+        part_maps[d] = torch.zeros((B, n, n), dtype=i32, device=dev)
+        mv2_maps[d], ref2_maps[d] = mv_maps[d], ref_maps[d]
+        if rect_pu and d <= 2:
+            # rectangular PUs (TEncCu.cpp:1399 xCheckRDCostInter
+            # SIZE_2NxN / SIZE_Nx2N): each half's exact integer SAD pools
+            # from the depth+1 field; the halves get their own reference,
+            # quarter sweep and MC, and the CU codes the two-PU prediction
+            # at the inferred TU split (7.4.9.8 interSplitFlag: TU s/2 for
+            # 16/32 CUs, 32 for 64)
+            sub = sad_by_depth[d + 1].reshape(R, n_side * n_side, B, n, 2,
+                                              n, 2)
+            halves = {1: (sub[:, :, :, :, 0].sum(-1, dtype=i32),  # top
+                          sub[:, :, :, :, 1].sum(-1, dtype=i32)),  # bottom
+                      2: (sub[..., 0].sum(4, dtype=i32),          # left
+                          sub[..., 1].sum(4, dtype=i32))}         # right
+            tu_r = 32 if s == 64 else s // 2
+            rect = {}
+            for part, sads_k in halves.items():
+                hh, ww = (s // 2, s) if part == 1 else (s, s // 2)
+                pus = []
+                for k, sads_h in enumerate(sads_k):
+                    r_h, mv_i = choose(sads_h.reshape(R, n_side * n_side,
+                                                      B * nd))
+                    dx, dy = (0, k * hh) if part == 1 else (k * ww, 0)
+                    org_h = node_org + torch.tensor([dx, dy], device=dev)
+                    corg_h = corg + torch.tensor([dx // 2, dy // 2],
+                                                 device=dev)
+                    mv_h, _ = inter.quarter_refine_blocks(
+                        cur_blocks[:, dy:dy + hh, dx:dx + ww], ref_y, org_h,
+                        mv_i, hh, ref_idx=r_h, size_w=ww)
+                    preds = [inter.predict_inter_blocks(
+                        ref_y, org_h, mv_h, hh, is_luma=True, ref_idx=r_h,
+                        size_w=ww)] + [inter.predict_inter_blocks(
+                            ref_c, corg_h, mv_h, hh // 2, is_luma=False,
+                            ref_idx=r_h, size_w=ww // 2)
+                            for ref_c in (ref_cb, ref_cr)]
+                    pus.append((mv_h, r_h, preds))
+                pr = [torch.cat(pp, 1 if part == 1 else 2)
+                      for pp in zip(pus[0][2], pus[1][2])]
+                coded_r, sse_r = code(*pr, tu=tu_r)
+                # rate: levels, both PUs' MVD (against the CU's predictor)
+                # and ref_idx, part_mode bins and flags
+                mvb = _mvd_bits(pus[0][0], pred_mv) + _mvd_bits(pus[1][0],
+                                                                pred_mv)
+                rbits = (((((coded_r[0][2] + coded_r[1][2]) + coded_r[2][2])
+                           + mvb) + 10.0) + ref_bits_tab[pus[0][1].long()]
+                         ) + ref_bits_tab[pus[1][1].long()]
+                rect[part] = (sse_r + lam * rbits, pus, pr, coded_r)
+
+            pick_2 = rect[2][0] < rect[1][0]             # a tie: 2NxN
+            rcost = torch.minimum(rect[1][0], rect[2][0])
+            use_rect = rcost < cost                      # a tie: square
+
+            def rect_pick(get, orig):
+                """where(use_rect, the picked part's value, orig)."""
+                return _pick(use_rect, _pick(pick_2, get(rect[2]),
+                                             get(rect[1])), orig)
+
+            cost = torch.minimum(rcost, cost)
+            mv_q = rect_pick(lambda r: r[1][0][0], mv_maps[d].reshape(-1, 2))
+            ref_sel = rect_pick(lambda r: r[1][0][1], ref_maps[d].reshape(-1))
+            mv_maps[d] = mv_q.reshape(B, n, n, 2)
+            ref_maps[d] = ref_sel.reshape(B, n, n)
+            mv2_maps[d] = rect_pick(lambda r: r[1][1][0], mv_q
+                                    ).reshape(B, n, n, 2)
+            ref2_maps[d] = rect_pick(lambda r: r[1][1][1], ref_sel
+                                     ).reshape(B, n, n)
+            part_maps[d] = torch.where(
+                use_rect, torch.where(pick_2, 2, 1), 0).to(i32).reshape(
+                B, n, n)
+            mode_maps[d] = mode_maps[d].masked_fill(
+                use_rect.reshape(B, n, n), AMVP)
+            for ci, c in enumerate(("y", "cb", "cr")):
+                lvl_d[c][d] = rect_pick(lambda r: r[3][ci][0], lvl_d[c][d])
+                rr_d[c][d] = rect_pick(lambda r: r[3][ci][1], rr_d[c][d])
+                pred_d[c][d] = rect_pick(lambda r: r[2][ci], pred_d[c][d])
+
         if intra_in_p:
             # intra escape inside P frames (TEncCu.cpp:1438 /
             # HM-16.5_Test_LDP TEncCu.cpp:746-803): the All-Intra
@@ -503,6 +590,7 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
             imode_maps[d] = m_i.reshape(B, n, n).to(i32)
             mv_maps[d] = mv_maps[d].masked_fill(intra_maps[d][..., None], 0)
             ref_maps[d] = ref_maps[d].masked_fill(intra_maps[d], 0)
+            part_maps[d] = part_maps[d].masked_fill(intra_maps[d], 0)
             mode_maps[d] = mode_maps[d].masked_fill(intra_maps[d], INTRA)
         else:
             intra_maps[d] = torch.zeros((B, n, n), dtype=torch.bool,
@@ -524,22 +612,43 @@ def p_search_frame(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr,
         dmap = dsel.repeat_interleave(unit, 1).repeat_interleave(unit, 2)
         return torch.gather(planes, -1, dmap[..., None])[..., 0]
 
-    def select_unit(maps):
-        """[B, 8, 8, ...]: each 8x8 unit's value at its depth."""
-        per = [maps[d].repeat_interleave(8 >> d, 1).repeat_interleave(
-            8 >> d, 2) for d in range(4)]
+    def up(m, d):
+        """[B, n, n, ...] per-node map at depth d -> [B, 8, 8, ...]."""
+        return m.repeat_interleave(8 >> d, 1).repeat_interleave(8 >> d, 2)
+
+    def select_unit(per):
+        """[B, 8, 8, ...]: each 8x8 unit's value at its depth, from the
+        per-depth unit maps `per`."""
         st = torch.stack(per, 3)                         # [B, 8, 8, 4, ...]
         idx = dsel.reshape(B, 8, 8, 1, *([1] * (st.dim() - 4)))
         idx = idx.expand(B, 8, 8, 1, *st.shape[4:])
         return torch.gather(st, 3, idx)[:, :, :, 0]
 
+    def select_maps(maps):
+        return select_unit([up(maps[d], d) for d in range(4)])
+
+    def unit_motion(d):
+        """(mv, ref) of each 8x8 unit at depth d: the units of the second
+        PU of a 2NxN (bottom) or Nx2N (right) CU take mv2 / ref2."""
+        u = 8 >> d
+        mv, ref = up(mv_maps[d], d), up(ref_maps[d], d)
+        if rect_pu and d <= 2:
+            pt = up(part_maps[d], d)
+            pos = torch.arange(8, device=dev) % u >= u // 2
+            in_pu1 = (((pt == 1) & pos[None, :, None])
+                      | ((pt == 2) & pos[None, None, :]))
+            mv = torch.where(in_pu1[..., None], up(mv2_maps[d], d), mv)
+            ref = torch.where(in_pu1, up(ref2_maps[d], d), ref)
+        return mv, ref
+
+    motion = [unit_motion(d) for d in range(4)]
     out = {}
     for c, unit in (("y", 8), ("cb", 4), ("cr", 4)):
         out["coef_" + c] = select_plane(lvl_d[c], unit).to(torch.int16)
         rec = select_plane(pred_d[c], unit) + select_plane(rr_d[c], unit)
         out["rec_" + c] = rec.clamp(0, 255).to(torch.uint8)
     return PSearchResult(
-        depth8=depth8, mv8=select_unit(mv_maps), ref8=select_unit(ref_maps),
-        intra8=select_unit(intra_maps), imode8=select_unit(imode_maps),
-        part8=torch.zeros((B, 8, 8), dtype=i32, device=dev),
-        mode8=select_unit(mode_maps), **out)
+        depth8=depth8, mv8=select_unit([m for m, _ in motion]),
+        ref8=select_unit([r for _, r in motion]),
+        intra8=select_maps(intra_maps), imode8=select_maps(imode_maps),
+        part8=select_maps(part_maps), mode8=select_maps(mode_maps), **out)

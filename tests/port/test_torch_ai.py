@@ -24,6 +24,7 @@ from hevc_tpu_torch.ops import intra_mm as t_mm
 from hevc_tpu_torch.pipeline.ai import AIEncoder as TAIEncoder
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

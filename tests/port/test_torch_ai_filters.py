@@ -36,6 +36,7 @@ from hevc_tpu_torch.pipeline import ratectrl as t_rc
 from hevc_tpu_torch.pipeline.ai import AIEncoder as TAIEncoder
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(__file__), "..", "..", "models",
                    "eth_cnn_qp30~35.npz")

@@ -15,6 +15,7 @@ from hevc_tpu.ops import deblock as j_dbk
 from hevc_tpu_torch.ops import deblock as t_dbk
 
 from tests.test_e2e_bitstream import legalize_depth
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -22,6 +23,21 @@ def _release_compiled_programs():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+def normative_edge_masks(depth8, part8=None):
+    """The JAX `edge_masks` with the TU size of `tu_size8(depth8, part8)`:
+    a rectangular CU of 16 or 32 splits its TU once (7.4.9.8), so both of
+    its inner TU edges are edges (8.7.2.3). The JAX function takes the TU
+    size of the depth alone and adds only the prediction edge; HM filters
+    the other inner edge too. The JAX reference of a deblocking with
+    rectangular PUs is this function in its place."""
+    import jax.numpy as jnp
+    t8 = j_dbk.tu_size8(depth8, part8)
+    h8, w8 = t8.shape
+    x8 = jnp.arange(w8)[None, :]
+    y8 = jnp.arange(h8)[:, None]
+    return ((x8 * 8) % t8 == 0) & (x8 > 0), ((y8 * 8) % t8 == 0) & (y8 > 0)
 
 
 def _blocky(h, w, rng, block=8):
@@ -106,7 +122,10 @@ def test_deblock_frame_leaves_its_input_alone():
     (128, 64, 27, 23, False, False, True),
     (64, 64, 45, 24, False, True, False)])
 def test_deblock_frame_inter_matches_jax(w, h, qp, seed, with_ref,
-                                         with_intra, with_part):
+                                         with_intra, with_part, monkeypatch):
+    """With rectangular PUs the JAX side takes `normative_edge_masks`;
+    its own edge masks leave inner TU edges out, which the boundary
+    strengths show."""
     y, cb, cr, d8 = _frame(w, h, seed)
     rng = np.random.RandomState(seed + 100)
     h8, w8 = h // 8, w // 8
@@ -121,6 +140,9 @@ def test_deblock_frame_inter_matches_jax(w, h, qp, seed, with_ref,
     if with_part:
         kw["part8"] = np.where((d8 == 1) | (d8 == 2),
                                rng.randint(0, 3, (h8, w8)), 0).astype(np.int32)
+    if with_part:
+        own = j_dbk.inter_bs_masks(d8, mvq8, coef_y, **kw)
+        monkeypatch.setattr(j_dbk, "edge_masks", normative_edge_masks)
     got = t_dbk.deblock_frame_inter(y, cb, cr, d8, mvq8, coef_y, qp, **kw)
     want = j_dbk.deblock_frame_inter(y, cb, cr, d8, mvq8, coef_y, qp, **kw)
     for g, wv in zip(got, want):
@@ -130,3 +152,6 @@ def test_deblock_frame_inter_matches_jax(w, h, qp, seed, with_ref,
     for g, wv in zip(bs, jbs):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wv))
     assert {0, 1} <= set(np.unique(bs[0].numpy()))
+    if with_part:
+        assert not all(np.array_equal(g.numpy(), np.asarray(o))
+                       for g, o in zip(bs, own))

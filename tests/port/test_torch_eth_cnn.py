@@ -19,6 +19,7 @@ from hevc_tpu.models import eth_cnn as j_cnn, hcpm as j_hcpm
 from hevc_tpu_torch.models import eth_cnn as t_cnn, hcpm as t_hcpm
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

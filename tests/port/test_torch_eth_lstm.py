@@ -20,6 +20,8 @@ import torch
 from hevc_tpu.models import eth_lstm as j_lstm, hcpm as j_hcpm
 from hevc_tpu_torch.models import eth_lstm as t_lstm, hcpm as t_hcpm
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_programs():

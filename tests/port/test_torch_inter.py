@@ -19,6 +19,8 @@ import torch
 from hevc_tpu.ops import inter as j_inter
 from hevc_tpu_torch.ops import inter as t_inter
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_programs():

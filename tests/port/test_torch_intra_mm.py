@@ -14,6 +14,8 @@ import torch
 from hevc_tpu.ops import intra as j_intra, intra_mm as j_mm
 from hevc_tpu_torch.ops import intra as t_intra, intra_mm as t_mm
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_programs():

@@ -26,6 +26,7 @@ from hevc_tpu_torch.models import hcpm as t_hcpm
 from hevc_tpu_torch.pipeline import ldp as t_ldp
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,6 +21,8 @@ from hevc_tpu_torch.ops import (bits as t_bits, cost as t_cost,
                                 rdoq as t_rdoq, refs as t_refs,
                                 transforms as t_tr)
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_programs():

@@ -29,6 +29,7 @@ from hevc_tpu_torch.pipeline import pframe as t_pframe
 from hevc_tpu_torch.pipeline import psearch as t_psearch
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -341,7 +342,7 @@ def test_filtered_stream_decodes_in_hm(tmp_path):
         _assert_frames_equal(d, r)
 
 
-@pytest.mark.parametrize("kw", [dict(tree="full"),
+@pytest.mark.parametrize("kw", [dict(tree="full", slice_mode="B"),
                                 dict(tree="flat", slice_mode="B"),
                                 dict(tree="flat", cu_qp_delta=True)])
 def test_unported_options_raise(kw):

@@ -45,6 +45,7 @@ from hevc_tpu_torch.pipeline import search as t_search
 
 from tests.port.test_torch_pframe import _p_maps, _sequence
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 LSTM = "models/eth_lstm_qp30~35.npz"
 GOP_QPS = (32, 33, 34, 35)          # QP 32 with the GOP-4 offsets
@@ -512,16 +513,29 @@ def test_patch_intra_cus_matches_jax(rdoq):
 # ------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("kw", [
-    dict(rect_pu=True),
-    dict(rect_pu=False, num_refs=2),
+    dict(slice_mode="B", num_refs=2),
+    dict(cu_qp_delta=True),
     dict(rect_pu=False, slice_mode="B"),
     dict(rect_pu=False, cu_qp_delta=True)])
 def test_full_tree_refusals(kw):
     kw = dict(kw)
     cfg = EncoderConfig(128, 64, num_refs=kw.pop("num_refs", 1),
                         cu_qp_delta=kw.pop("cu_qp_delta", False))
-    with pytest.raises(NotImplementedError, match="M10b|M11"):
+    with pytest.raises(NotImplementedError, match="M10b part 4|M11"):
         t_pframe.LDPEncoder(cfg, tree="full", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("tree", ["full", "flat"])
+def test_lcu_rate_control_refused(tree):
+    """An LCU-level controller (it has `pre_frame_lcu`) needs a per-CTU
+    QP: `encode` raises, naming M11, before it codes a picture."""
+    from hevc_tpu_torch.pipeline.ratectrl import LCURateController
+    enc = t_pframe.LDPEncoder(EncoderConfig(128, 64), tree=tree,
+                              device="cpu")
+    rc = LCURateController(60_000, 30, 128, 64, n_frames=2, init_qp=32)
+    with pytest.raises(NotImplementedError, match="M11"):
+        enc.encode(_stream_frames(128, 64)[:2], rate_control=rc)
+    assert not hasattr(enc, "frame_qps")
 
 
 def test_p_search_frame_refusals():
@@ -529,8 +543,6 @@ def test_p_search_frame_refusals():
     args = ([torch.from_numpy(p) for p in cur]
             + [torch.from_numpy(p)[None] for p in ref]
             + [torch.from_numpy(j_search.ctu_grid(128, 64))])
-    with pytest.raises(NotImplementedError, match="M10b part 3"):
-        t_psearch.p_search_frame(*args, qp=32, pad_w=128, pad_h=64)
     with pytest.raises(NotImplementedError, match="M11"):
         t_psearch.p_search_frame(*args, qp=np.array([30, 34]), pad_w=128,
                                  pad_h=64, rect_pu=False)

@@ -13,6 +13,7 @@ from hevc_tpu.pipeline import golden, recon as j_recon
 from hevc_tpu_torch.pipeline import bench_hooks, recon as t_recon
 
 from tests.test_e2e_bitstream import legalize_depth, synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _decisions(pad_w, pad_h, seed):

@@ -23,6 +23,7 @@ from hevc_tpu_torch.pipeline import bench_hooks, recon as t_recon
 from hevc_tpu_torch.pipeline import recon_kernel as rk
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 PLANES = ("recon_y", "recon_cb", "recon_cr", "coef_y", "coef_cb", "coef_cr")
 CASES = [(w, h, qp, rdoq) for (w, h) in ((128, 64), (96, 80))

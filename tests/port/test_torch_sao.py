@@ -14,6 +14,8 @@ import torch
 from hevc_tpu.ops import sao as j_sao
 from hevc_tpu_torch.ops import sao as t_sao
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_programs():

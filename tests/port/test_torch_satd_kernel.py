@@ -10,6 +10,8 @@ import torch
 
 from hevc_tpu_torch.ops import intra, intra_mm
 
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):

@@ -19,6 +19,7 @@ from hevc_tpu.pipeline import search as j_search
 from hevc_tpu_torch.pipeline import search as t_search
 
 from tests.test_e2e_bitstream import synth_frame
+from tests.port.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
