@@ -35,7 +35,15 @@ decode; both rectangular shapes and references other than the newest
 must be chosen; the first three frames again with deblocking and SAO)
 and against the CPU at 416x240, and under a picture-level
 `RateController` on the structured 1080p clip (HM decode) and against
-the CPU at 416x240, and prints one JSON object per phase. The last line is
+the CPU at 416x240, then drives the command-line encoder
+(`hevc_tpu_torch.apps.encoder.main`) on HM cfg files it writes: low-delay
+B on the eight shear frames (GOP 4 of B pictures, four references,
+filters on, ETH-LSTM; HM decodes the file with B slices and matching MD5)
+and All-Intra on two structured frames (filters on, ETH-CNN), holds a
+416x240 low-delay B stream made on the card equal to the CPU's, runs the
+port's own decoder on the card over three 416x240 streams (equal to the
+encoder's recons and to HM's output) and the 1080p B stream, and prints
+one JSON object per phase. The last line is
 `{"ok": true, "device": {...}}`; any failed phase ends the run with a
 non-zero exit code and no such line. Without a CUDA device it fails at
 once.
@@ -311,6 +319,20 @@ def encode(frames, cnn, w, h, device=None, rate_control=None, **cfg_kw):
             time.perf_counter() - t0)
 
 
+def hm_decode_file(bs, rec, of):
+    """HM on a bitstream file: rc 0 and no MD5 mismatch, or the smoke
+    fails. Returns the decoder's log."""
+    try:
+        proc = subprocess.run([HM_DECODER, "-b", bs, "-o", rec],
+                              capture_output=True, text=True, timeout=600)
+    except OSError as e:
+        fail(f"the HM decoder cannot be executed: {e}")
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "mismatch" in log.lower():
+        fail(f"{of}: HM decode rc={proc.returncode}:\n{log[-2000:]}")
+    return log
+
+
 def hm_check(stream, recons, w, h, of):
     """Decode with the HM reference decoder: rc 0, MD5 SEI matches,
     decoded YUV equals the encoder's reconstructions. A decoder that
@@ -320,14 +342,7 @@ def hm_check(stream, recons, w, h, of):
         bs, rec = os.path.join(tmp, "str.bin"), os.path.join(tmp, "rec.yuv")
         with open(bs, "wb") as f:
             f.write(stream)
-        try:
-            proc = subprocess.run([HM_DECODER, "-b", bs, "-o", rec],
-                                  capture_output=True, text=True, timeout=300)
-        except OSError as e:
-            fail(f"the HM decoder cannot be executed: {e}")
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0 or "mismatch" in log.lower():
-            fail(f"HM decode rc={proc.returncode}:\n{log[-2000:]}")
+        hm_decode_file(bs, rec, of)
         dec = read_yuv420(rec, w, h)
         if len(dec) != len(recons):
             fail(f"HM decoded {len(dec)} frames, encoder made {len(recons)}")
@@ -861,7 +876,8 @@ def check_ldp_flat_1080p(frames, cnn):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames)
+    stream, recons = enc.encode(frames)
+    stats = enc.last_stats
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
@@ -911,7 +927,8 @@ def check_ldp_flat_filters_1080p(frames, cnn):
     enc = ldp_encoder(1920, 1080, cnn, deblock=True, sao=True)
     reset_launches()
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames)
+    stream, recons = enc.encode(frames)
+    stats = enc.last_stats
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
@@ -1063,7 +1080,8 @@ def full_tree_run(enc, frames, of, rate_control=None):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames, rate_control=rate_control)
+    stream, recons = enc.encode(frames, rate_control=rate_control)
+    stats = enc.last_stats
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1129,7 +1147,8 @@ def check_ldp_full_filters_1080p(frames, cnn, make=None,
     enc = (make or full_encoder)(1920, 1080, cnn, deblock=True, sao=True)
     reset_launches()
     t0 = time.perf_counter()
-    stream, recons, stats = enc.encode(frames)
+    stream, recons = enc.encode(frames)
+    stats = enc.last_stats
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
@@ -1179,15 +1198,18 @@ def check_ldp_full_card_vs_cpu(cnn, cnn_cpu):
          "units_merge_or_skip": merged, "units_in_split_cus": split})
 
 
-def rect_encoder(w, h, cnn, device=None, num_refs=4, **cfg_kw):
+def rect_encoder(w, h, cnn, device=None, num_refs=4, slice_mode="P",
+                 **cfg_kw):
     """The JAX encoder's default operating point: `LDPEncoder(cfg)` with
     `tree="full"`, `rect_pu=True` and `cfg.num_refs` references at QP 32,
-    gated by the shipped ETH-LSTM (cfg_kw: deblock, sao)."""
+    gated by the shipped ETH-LSTM (cfg_kw: deblock, sao), P slices or,
+    with slice_mode="B", low-delay B."""
     from hevc_tpu_torch.entropy.headers import EncoderConfig
     from hevc_tpu_torch.pipeline.pframe import LDPEncoder
     return LDPEncoder(EncoderConfig(w, h, qp=32, num_refs=num_refs,
                                     **cfg_kw),
-                      cnn=cnn, lstm_params=ldp_lstm_params(), device=device)
+                      cnn=cnn, lstm_params=ldp_lstm_params(),
+                      slice_mode=slice_mode, device=device)
 
 
 def check_rect_exercised(seen, of):
@@ -1238,6 +1260,7 @@ def check_ldp_rect_card_vs_cpu(cnn, cnn_cpu):
          "frame_qps": out["cuda"][2], "bytes": len(out["cuda"][0]),
          "identical": True,
          **check_rect_exercised(out["cuda"][3], "ldp_rect_card_vs_cpu")})
+    return out["cuda"][:2]
 
 
 def rc_moves(qps, init_qp, of):
@@ -1286,6 +1309,256 @@ def check_ldp_rc_card_vs_cpu(cnn, cnn_cpu, target_bps=500_000):
          "padded": "448x256", "frames": len(frames), "num_refs": 4,
          "target_bps": target_bps, "fps": 30, "frame_qps": out["cuda"][1],
          "bytes": len(out["cuda"][0]), "identical": True})
+
+
+def write_cfg(path, opts):
+    with open(path, "w") as f:
+        for k, v in opts.items():
+            f.write(f"{k:<24}: {v}\n")
+
+
+#: GOP rows of the LDB cfg: HM's encoder_lowdelay_main.cfg operating
+#: point, every row a B picture, QP offsets 3, 2, 3, 1, four active
+#: references
+LDB_GOP = {
+    "Frame1": "B 1 3 0.4624 0 0 0 4 4 -1 -5 -9 -13 0",
+    "Frame2": "B 2 2 0.4624 0 0 0 4 4 -1 -2 -6 -10 1 -1 5 1 1 1 0 1",
+    "Frame3": "B 3 3 0.4624 0 0 0 4 4 -1 -3 -7 -11 1 -1 5 0 1 1 1 1",
+    "Frame4": "B 4 1 0.578 0 0 0 4 4 -1 -4 -8 -12 1 -1 5 0 1 1 1 1",
+}
+
+
+def run_encoder_app(tmp, frames, mode_cfg, extra_args, of):
+    """`hevc_tpu_torch.apps.encoder.main` on the card over `frames`
+    written as a 4:2:0 YUV file, with a source cfg and `mode_cfg` (both
+    written here). Returns (stream, recon frames read back from the
+    app's recon file, its stdout lines, the wall seconds of main(), the
+    encoder object, the kernels' launches, the bitstream and recon
+    paths)."""
+    import contextlib
+    import io
+    from hevc_tpu_torch.apps import encoder as app
+    from hevc_tpu_torch.core.yuv import read_yuv420, write_yuv420
+    from hevc_tpu_torch.pipeline import pframe
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
+    h, w = frames[0].y.shape
+    yuv, bs, rec = (os.path.join(tmp, f"{of}.{e}")
+                    for e in ("yuv", "bin", "rec.yuv"))
+    write_yuv420(yuv, frames)
+    src, mode = os.path.join(tmp, "src.cfg"), os.path.join(tmp, "mode.cfg")
+    write_cfg(src, {"InputFile": yuv, "InputBitDepth": 8,
+                    "InputChromaFormat": 420, "FrameRate": 30,
+                    "FrameSkip": 0, "SourceWidth": w, "SourceHeight": h,
+                    "FramesToBeEncoded": len(frames), "Level": 4.1})
+    write_cfg(mode, {"BitstreamFile": bs, "ReconFile": rec,
+                     "MaxCUWidth": 64, "MaxCUHeight": 64,
+                     "MaxPartitionDepth": 4, "QP": 32, "RDOQ": 1,
+                     "LoopFilterDisable": 0, "SAO": 1, **mode_cfg})
+    made = []
+    encodes = {cls: cls.encode for cls in (pframe.LDPEncoder, AIEncoder)}
+
+    def keep(fn):
+        def encode(self, *a, **k):
+            made.append(self)
+            return fn(self, *a, **k)
+        return encode
+
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for cls, fn in encodes.items():
+            cls.encode = keep(fn)
+        with contextlib.redirect_stdout(out):
+            rc = app.main(["-c", src, "-c", mode, *extra_args])
+    finally:
+        for cls, fn in encodes.items():
+            cls.encode = fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    if rc != 0 or len(made) != 1:
+        fail(f"{of}: the encoder app returned {rc}")
+    with open(bs, "rb") as f:
+        stream = f.read()
+    return (stream, read_yuv420(rec, w, h), out.getvalue().splitlines(),
+            wall, made[0], launches, bs, rec)
+
+
+def check_app_log(lines, frames, slice_type, of):
+    """The app's log: one `POC n ( X-SLICE, QP q )` line per picture, the
+    IDR an I slice and every other picture `slice_type`, then SUMMARY."""
+    pocs = [re.match(r"POC\s+(\d+) \( ([IPB])-SLICE, QP\s*(\d+) \)", ln)
+            for ln in lines if ln.startswith("POC")]
+    types = [m.group(2) for m in pocs if m]
+    want = ["I"] + [slice_type] * (len(frames) - 1)
+    if types != want or not lines[-1].startswith("SUMMARY:"):
+        fail(f"{of}: the app's log reads slice types {types}, expected "
+             f"{want}, last line {lines[-1]!r}")
+    return [int(m.group(3)) for m in pocs]
+
+
+def check_hm_of_app(bs, rec, recons, w, h, of, slice_type):
+    """HM decodes the app's bitstream file with matching MD5, names the
+    first picture an I slice and every later one a `slice_type` slice (in
+    output order), and its output equals the app's recon file. Returns
+    HM's seconds."""
+    from hevc_tpu_torch.core.yuv import read_yuv420
+    t0 = time.perf_counter()
+    out = bs + ".hm.yuv"
+    log = hm_decode_file(bs, out, of)
+    hm_s = time.perf_counter() - t0
+    hm_types = re.findall(r"POC\s+\d+\s+TId:\s*\d+\s*\(\s*([IPB])-SLICE",
+                          log)
+    want = ["I"] + [slice_type] * (len(recons) - 1)
+    if hm_types != want:
+        fail(f"{of}: HM's log reads slice types {hm_types}, expected {want}")
+    dec = read_yuv420(out, w, h)
+    with open(out, "rb") as f1, open(rec, "rb") as f2:
+        if f1.read() != f2.read() or len(dec) != len(recons):
+            fail(f"{of}: HM's output differs from the app's recon file")
+    return hm_s
+
+
+def check_app_ldb_1080p(frames):
+    """Eight 1080p frames of the shear clip through the encoder app in
+    LDB mode on the card (GOP 4, every row B, four references, QP 32,
+    deblocking, SAO and RDOQ on, the shipped ETH-LSTM): HM decodes the
+    bitstream file with matching MD5 and B slices at POC 1-7, its output
+    equals the app's recon file, K1 runs 17 times and K2 62 times. Prints
+    bytes, PSNR-Y, the app's time and the wall time of each picture.
+    Returns (stream, recons, launches)."""
+    of = "app_ldb_1080p"
+    h, w = frames[0].y.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        stream, recons, lines, wall, enc, launches, bs, rec = \
+            run_encoder_app(tmp, frames, {"IntraPeriod": -1, "GOPSize": 4,
+                                          "DecodingRefreshType": 0,
+                                          **LDB_GOP},
+                            ["--lstm", LSTM_WEIGHTS], of)
+        qps = check_app_log(lines, frames, "B", of)
+        check_full_launches(launches, len(frames) - 1, of)
+        if enc.slice_mode != "B" or enc.cfg.num_refs != 4:
+            fail(f"{of}: the app built slice_mode={enc.slice_mode}, "
+                 f"num_refs={enc.cfg.num_refs}")
+        psnrs = ldp_psnr_check(frames, recons, of)
+        hm_s = check_hm_of_app(bs, rec, recons, w, h, of, "B")
+    frame_ms = [t * 1e3 for t in enc.frame_s]
+    say({"phase": of, "frames": len(frames), "size": f"{w}x{h}",
+         "mode": "ldb", "gop": 4, "num_refs": 4,
+         "deblock": True, "sao": True, "lstm": True, "frame_qps": qps,
+         "bytes": len(stream), "slice_bytes": slice_bytes(stream),
+         "psnr_y": psnrs, "app_wall_s": wall,
+         "summary": lines[-1], "frame_ms": frame_ms,
+         "warm_b_frame_ms_median": float(np.median(frame_ms[2:])),
+         **enc.last_stats, "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"],
+         "hm_decode_s": hm_s, "hm_md5": "match",
+         "hm_slice_types": "I, then B at POC 1-7",
+         "hm_output_equals_recon_file": True})
+    return stream, recons, launches
+
+
+def check_app_ai_1080p(frames):
+    """Two 1080p frames of the structured clip through the encoder app in
+    AI mode on the card (IntraPeriod 1, deblocking and SAO on, the
+    trained ETH-CNN): HM decodes with matching MD5 and equals the recon
+    file; K1 runs 3 and K2 62 times per frame. Returns the launches."""
+    of = "app_ai_1080p"
+    h, w = frames[0].y.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        stream, recons, lines, wall, enc, launches, bs, rec = \
+            run_encoder_app(tmp, frames, {"IntraPeriod": 1, "GOPSize": 1},
+                            ["--cnn", WEIGHTS], of)
+        check_app_log(lines, frames, "I", of)
+        want = {"satd35": 3 * len(frames),
+                "recon_frame": RECON_LAUNCHES_1080P * len(frames)}
+        if launches != want:
+            fail(f"{of}: kernel launches {launches}, expected {want}")
+        if not (enc.cfg.deblock and enc.cfg.sao and enc.cnn is not None):
+            fail(f"{of}: the app did not build the filtered, CNN-gated "
+                 "AIEncoder")
+        psnrs = ldp_psnr_check(frames, recons, of)
+        hm_s = check_hm_of_app(bs, rec, recons, w, h, of, "I")
+    say({"phase": of, "frames": len(frames), "size": f"{w}x{h}",
+         "mode": "ai", "deblock": True, "sao": True, "cnn": True,
+         "bytes": len(stream), "psnr_y": psnrs, "app_wall_s": wall,
+         "s_per_frame": wall / len(frames), "summary": lines[-1],
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"],
+         "hm_decode_s": hm_s, "hm_md5": "match",
+         "hm_output_equals_recon_file": True})
+    return launches
+
+
+def check_ldb_card_vs_cpu(cnn, cnn_cpu):
+    """Low-delay B, card against CPU: four 416x240 frames of the shear
+    clip (448x256 coded), two references, rectangular PUs,
+    ETH-LSTM-gated, deblocking and SAO on, `slice_mode="B"`: the same
+    bytes. Returns the card's (stream, recons)."""
+    from hevc_tpu_torch.pipeline import bench_hooks
+    frames = bench_hooks.synth_shear(4, 416, 240)
+    out = {}
+    for dev, net in (("cuda", cnn), ("cpu", cnn_cpu)):
+        enc = rect_encoder(416, 240, net, device=dev, num_refs=2,
+                           slice_mode="B", deblock=True, sao=True)
+        out[dev] = enc.encode(frames)
+    if out["cuda"][0] != out["cpu"][0]:
+        fail("ldb_card_vs_cpu: the card's B stream differs from the CPU's")
+    hm_check(out["cuda"][0], out["cuda"][1], 416, 240, "ldb_card_vs_cpu")
+    say({"phase": "ldb_card_vs_cpu", "size": "416x240", "padded": "448x256",
+         "frames": len(frames), "num_refs": 2, "slice_mode": "B",
+         "lstm": True, "deblock": True, "sao": True,
+         "bytes": len(out["cuda"][0]), "identical": True})
+    return out["cuda"]
+
+
+def check_decoder_card(streams, big):
+    """The port's decoder on the card: every stream of `streams` ({name:
+    (stream, recons, w, h)}) decodes with every MD5 hash OK into the
+    encoder's reconstructions and HM's output; then the 1080p LDB stream
+    `big` once, timed."""
+    from hevc_tpu_torch.core.yuv import read_yuv420
+    from hevc_tpu_torch.decoder import decode_annexb
+    rec = {}
+    for name, (stream, recons, w, h) in streams.items():
+        t0 = time.perf_counter()
+        res = decode_annexb(stream)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if res.hash_ok != [True] * len(recons):
+            fail(f"decoder_card {name}: hashes {res.hash_ok}")
+        with tempfile.TemporaryDirectory() as tmp:
+            bs, out = os.path.join(tmp, "s.bin"), os.path.join(tmp, "o.yuv")
+            with open(bs, "wb") as f:
+                f.write(stream)
+            hm_decode_file(bs, out, f"decoder_card {name}")
+            hm = read_yuv420(out, w, h)
+        for d, r, m in zip(res.frames, recons, hm):
+            for p in ("y", "cb", "cr"):
+                if not (np.array_equal(getattr(d, p), getattr(r, p))
+                        and np.array_equal(getattr(d, p), getattr(m, p))):
+                    fail(f"decoder_card {name}: a decoded picture differs "
+                         "from the encoder's recon or HM's output")
+        rec[name] = {"size": f"{w}x{h}", "frames": len(recons),
+                     "bytes": len(stream), "s": sec,
+                     "s_per_frame": sec / len(recons)}
+    stream, recons = big
+    t0 = time.perf_counter()
+    res = decode_annexb(stream)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if res.hash_ok != [True] * len(recons) or not all(
+            np.array_equal(getattr(d, p), getattr(r, p))
+            for d, r in zip(res.frames, recons) for p in ("y", "cb", "cr")):
+        fail(f"decoder_card app_ldb_1080p: hashes {res.hash_ok}, or a "
+             "decoded picture differs from the encoder's recon")
+    h, w = recons[0].y.shape
+    rec["app_ldb_1080p"] = {"size": f"{w}x{h}", "frames": len(recons),
+                            "bytes": len(stream), "s": sec,
+                            "s_per_frame": sec / len(recons)}
+    say({"phase": "decoder_card", "hash_ok": "all", "equals_recons": True,
+         "equals_hm": "416x240 streams", "streams": rec})
 
 
 def main():
@@ -1526,11 +1799,26 @@ def main():
     rect_launches = check_ldp_rect_1080p(shear, cnn)
     rect_filt_launches = check_ldp_full_filters_1080p(
         shear[:3], cnn, rect_encoder, "ldp_rect_filters_1080p")
-    check_ldp_rect_card_vs_cpu(cnn, cnn_cpu)
+    rect_small = check_ldp_rect_card_vs_cpu(cnn, cnn_cpu)
     rc_ldp_launches = check_ldp_rc_1080p(ldp_frames, cnn)
     check_ldp_rc_card_vs_cpu(cnn, cnn_cpu)
 
-    # 16. the kernels of the main paths. satd35: times are sums over the
+    # 16. the CLI apps and the port's decoder: the encoder app in LDB mode
+    # on the eight 1080p shear frames and in AI mode on two structured
+    # 1080p frames (HM decodes the files), low-delay B card against CPU
+    # at 416x240, and the port's decoder on the card over three 416x240
+    # streams (LDB, filtered AI, filtered rectangular LDP with two
+    # references) and the 1080p LDB stream
+    ldb_stream, ldb_recons, app_ldb_launches = check_app_ldb_1080p(shear)
+    app_ai_launches = check_app_ai_1080p(frames[:2])
+    ldb_small = check_ldb_card_vs_cpu(cnn, cnn_cpu)
+    ai_small = encode(small, cnn, 416, 240, deblock=True, sao=True)[:2]
+    check_decoder_card({"ldb_card_vs_cpu": (*ldb_small, 416, 240),
+                        "ai_filtered": (*ai_small, 416, 240),
+                        "ldp_rect_card_vs_cpu": (*rect_small, 416, 240)},
+                       (ldb_stream, ldb_recons))
+
+    # 17. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
@@ -1549,7 +1837,9 @@ def main():
         "LDPEncoder.encode rect 4 refs deblock+sao 1080p":
             rect_filt_launches[name],
         "LDPEncoder.encode rect 4 refs rate_control 1080p":
-            rc_ldp_launches[name]}
+            rc_ldp_launches[name],
+        "apps.encoder ldb 1080p": app_ldb_launches[name],
+        "apps.encoder ai deblock+sao 1080p": app_ai_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

@@ -16,8 +16,14 @@ models    : ETH-CNN, ETH-LSTM, HCPM gating
 pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder),
             picture-level rate control, the Low-Delay-P predictor chain
             (pre-encode residue -> ETH-LSTM HCPM, LDPPipeline) and the
-            Low-Delay-P encoder (LDPEncoder: flat tree, or the CU-tree P
-            search of psearch with the host intra re-code of intra_p)
+            low-delay encoder (LDPEncoder: flat tree, or the CU-tree P
+            search of psearch with the host intra re-code of intra_p; P or
+            low-delay B slices)
+decoder   : the standalone decoder (host parsing, reconstruction and
+            filters through the encoder's ops)
+apps      : the TAppEncoder / TAppDecoder command lines (HM cfg files,
+            core/config) and the App/utils tools
+evaltools : the HM reference decoder as an oracle
 csrc      : CUDA sources of the kernels
 
 The float RD costs and the CNN probabilities feed hard comparisons, so

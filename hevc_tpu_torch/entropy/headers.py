@@ -292,9 +292,9 @@ def finish_p_slice_nal(bw: BitWriter) -> bytes:
 def start_b_slice(cfg: EncoderConfig, slice_qp: int, poc: int,
                   n_refs: int = 1) -> BitWriter:
     """Slice header for a one-slice low-delay B picture: both reference
-    lists hold the previous frame (single negative RPS entry), uni-L0
-    prediction per PU. Matches the reference's LDB operating point
-    (cfg/encoder_lowdelay_main.cfg) with 1 active ref per list."""
+    lists hold the n_refs previous pictures (negative RPS entries only,
+    so RefPicList1 equals RefPicList0), uni-L0 prediction per PU; the
+    reference's LDB operating point (cfg/encoder_lowdelay_main.cfg)."""
     bw = BitWriter()
     bw.u(1, 1)        # first_slice_segment_in_pic_flag
     bw.ue(0)          # slice_pic_parameter_set_id

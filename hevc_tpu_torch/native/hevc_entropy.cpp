@@ -986,10 +986,13 @@ struct PSliceEnc {
     }
   }
 
-  // Normative merge candidate list (8.5.3.2.3), uni-L0, TMVP off
-  // (twin of entropy/motion.merge_candidates): spatial A1 B1 B0 A0
+  // Normative merge candidate list (8.5.3.2.2), uni-L0 neighbours, TMVP
+  // off (twin of entropy/motion.merge_candidates): spatial A1 B1 B0 A0
   // (+B2 when fewer than 4), pruned on full motion (mv AND refIdx),
-  // zero-MV fill iterating refIdx 0..n_refs-1.
+  // zero-MV fill iterating refIdx 0..n_refs-1. In a B slice the zero
+  // candidates are bi-predictive (8.5.3.2.5): they get refIdx -1, which
+  // no uni-L0 PU matches, so such a PU is coded by AMVP and the motion
+  // field stays uni-L0 as the deblocking and later merge lists assume.
   int merge_cands(int x0, int y0, int size, int cands[5][3],
                   int w = 0, int h = 0, int part_mode = 0,
                   int part_idx = 0) const {
@@ -1024,7 +1027,7 @@ struct PSliceEnc {
     }
     int zero_idx = 0;
     while (n < 5) {
-      int r = zero_idx < n_refs ? zero_idx : 0;
+      int r = is_b ? -1 : zero_idx < n_refs ? zero_idx : 0;
       cands[n][0] = 0; cands[n][1] = 0; cands[n][2] = r; ++n;
       ++zero_idx;
     }

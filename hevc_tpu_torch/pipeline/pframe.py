@@ -12,7 +12,10 @@ previous reconstruction (the reference pre-encode shape,
 HM-16.5_Resi_Pre/TEncCu.cpp:388-397), the fastest operating point; it
 references the previous picture only, whatever `cfg.num_refs` says, as
 the reference's flat tree does. Both trees take a picture-level rate
-controller. Low-delay B and a per-CTU QP are not ported yet and raise.
+controller. The full tree also codes low-delay B (`slice_mode="B"`):
+the same search and reconstruction, B slice headers and B-context slice
+data (the flat tree refuses B). A per-CTU QP is not ported yet and
+raises.
 
 Inter reconstruction has no spatial dependency, so a whole frame runs as
 one batch of CTU tiles; only the levels, the decision maps and the final
@@ -82,8 +85,9 @@ def encode_p_frame_device(cur_y, cur_cb, cur_cr, ref_y, ref_cb, ref_cr, *,
 
 
 class LDPEncoder:
-    """Low-Delay-P sequence encoder: an IDR, then P frames against
-    earlier reconstructions, with the GOP-4 per-frame QP offsets of the
+    """Low-delay sequence encoder: an IDR, then P (or, with
+    `slice_mode="B"`, low-delay B) frames against earlier
+    reconstructions, with the GOP-4 per-frame QP offsets of the
     reference encoder_lowdelay_P_main.cfg (or the QPs of a rate
     controller, `encode(rate_control=)`).
 
@@ -97,8 +101,11 @@ class LDPEncoder:
     frame's search to the deepest level a gate leaves open.
     tree="flat": one inter 2Nx2N 64x64 CU per CTU against the previous
     reconstruction, the P slices' RDOQ always on, whatever `cfg.rdoq`
-    says, as in the reference. `slice_mode="B"` and `cfg.cu_qp_delta`
-    raise.
+    says, as in the reference. `slice_mode="B"` (full tree only) codes
+    the same decisions as low-delay B slices: both lists hold the same
+    pictures, every PU is uni-L0, and a PU whose motion only a
+    bi-predictive zero merge candidate would give is coded by AMVP.
+    `cfg.cu_qp_delta` raises.
 
     cnn: an `eth_cnn.EthCnn` for the IDR's decide, or None for the
     ungated search. device=None means the card; with no card that raises
@@ -111,12 +118,14 @@ class LDPEncoder:
                  rect_pu: bool = True, device=None):
         if tree not in ("full", "flat"):
             raise ValueError(f"tree={tree!r}: 'full' or 'flat'")
-        if slice_mode != "P":
+        if slice_mode not in ("P", "B"):
+            raise ValueError(f"slice_mode={slice_mode!r}: 'P' or 'B'")
+        if slice_mode == "B" and tree == "flat":
             # the reference's flat tree writes a P slice header and codes
             # its data with B contexts: HM reports an MD5 mismatch
             raise NotImplementedError(
-                f"slice_mode={slice_mode!r}: low-delay B is not ported yet "
-                "(ROADMAP Queue 1, M10b part 4)")
+                "slice_mode='B' with tree='flat': the flat tree codes P "
+                "slices only; low-delay B runs on tree='full'")
         if getattr(cfg, "cu_qp_delta", False):
             raise NotImplementedError(
                 "cu_qp_delta: a per-CTU QP is not ported yet (ROADMAP "
@@ -129,6 +138,8 @@ class LDPEncoder:
         self.tree = tree
         self.rect_pu = rect_pu
         self.use_gop_qp = use_gop_qp
+        self.slice_mode = slice_mode
+        self.last_stats = {}
         self.device = resolve_device(device)
         self.intra = AIEncoder(cfg, cnn=cnn, device=self.device)
         self.predictor = (ldp.LDPPredictor(cfg, lstm_params, thresholds,
@@ -157,15 +168,16 @@ class LDPEncoder:
 
     def encode(self, frames, with_hash_sei: bool = True,
                rate_control=None):
-        """Encode a sequence; returns (annexb bytes, recons, stats).
+        """Encode a sequence; returns (annexb bytes, recons).
         rate_control: an optional pipeline/ratectrl.RateController; it
         picks every picture's QP (the IDR's too, no GOP offsets) and is
         given each picture's bits, its hash SEI left out.
-        stats: decide_s (the IDR's decide; the P frames' pre-encode, LSTM
-        step and search, or the flat tree's motion stages), recon_s (the
-        IDR's reconstruction; the P frames' transforms or the intra
-        re-code, filters and copies to the host), entropy_s (the coders
-        and the hash SEI)."""
+        `last_stats` then holds decide_s (the IDR's decide; the P frames'
+        pre-encode, LSTM step and search, or the flat tree's motion
+        stages), recon_s (the IDR's reconstruction; the P frames'
+        transforms or the intra re-code, filters and copies to the host),
+        entropy_s (the coders and the hash SEI); `frame_s` each picture's
+        wall seconds."""
         if hasattr(rate_control, "pre_frame_lcu"):
             raise NotImplementedError(
                 "LCU rate control: a per-CTU QP is not ported yet "
@@ -176,10 +188,13 @@ class LDPEncoder:
         recons = []
         dpb = []                  # padded device reconstructions, newest first
         stats = {"decide_s": 0.0, "recon_s": 0.0, "entropy_s": 0.0}
+        self.last_stats = stats
+        self.frame_s = []
         self.frame_qps = []       # actual per-picture QPs
         if self.predictor is not None:
             self.predictor.reset()
         for poc, frame in enumerate(frames):
+            t_frame = time.perf_counter()
             pf = pad_frame(frame, cfg.pad_width, cfg.pad_height)
             frame_qp = (rate_control.pre_frame() if rate_control
                         else self._frame_qp(poc))
@@ -224,18 +239,20 @@ class LDPEncoder:
             recons.append(crop_frame(rec, cfg.width, cfg.height))
             dpb.insert(0, ref)
             del dpb[max(cfg.num_refs, 1):]
-        return b"".join(chunks), recons, stats
+            self.frame_s.append(time.perf_counter() - t_frame)
+        return b"".join(chunks), recons
 
     def _p_slice_nal(self, bw, depth8, mvq8, coef_y, coef_cb, coef_cr,
                      frame_qp, sao_params=None, **kw):
-        """P slice NAL: header bits in `bw`, then the slice data of the
-        native C++ coder (kw: its ref8, n_refs, poc, intra8, imode8,
+        """P or B slice NAL: header bits in `bw`, then the slice data of
+        the native C++ coder (kw: its ref8, n_refs, poc, intra8, imode8,
         part8). A failure of the coder raises: there is no fallback
         coder."""
         cfg = self.cfg
         data = native.encode_slice_data_p(
             depth8, mvq8, coef_y, coef_cb, coef_cr, cfg.pad_width,
-            cfg.pad_height, frame_qp, sao=sao_params, **kw)
+            cfg.pad_height, frame_qp, is_b=self.slice_mode == "B",
+            sao=sao_params, **kw)
         return nal_unit(NAL_TRAIL_R, bw.get_bytes() + data)
 
     def _encode_full(self, pf, dpb, poc, frame_qp, times=None):
@@ -338,7 +355,9 @@ class LDPEncoder:
         out = Frame(*(p.to(torch.uint8).cpu().numpy() for p in rec))
         if marks is not None:
             marks.append(time.perf_counter())
-        bw = headers.start_p_slice(cfg, frame_qp, poc, n_act)
+        start = (headers.start_b_slice if self.slice_mode == "B"
+                 else headers.start_p_slice)
+        bw = start(cfg, frame_qp, poc, n_act)
         chunk = self._p_slice_nal(
             bw, host["depth8"], host["mvq8"], *coef_h, frame_qp, sao_params,
             ref8=host["ref8"], n_refs=n_act, poc=poc,

@@ -278,7 +278,8 @@ def test_flat_stream_byte_identical_to_jax():
     frames = _sequence(w, h, 4, seed=3)
     enc = t_pframe.LDPEncoder(EncoderConfig(w, h, qp=32), tree="flat",
                               device="cpu")
-    ts, tr, stats = enc.encode(frames)
+    ts, tr = enc.encode(frames)
+    stats = enc.last_stats
     jenc = _j_encoder(j_headers.EncoderConfig(w, h, qp=32))
     js, jr = jenc.encode(_jframes(frames))
     assert enc.frame_qps == jenc.frame_qps == [32, 35, 34, 35]
@@ -329,8 +330,8 @@ def test_filtered_stream_decodes_in_hm(tmp_path):
     w, h = 128, 64
     frames = _sequence(w, h, 4, seed=5)
     cfg = EncoderConfig(w, h, qp=32, deblock=True, sao=True)
-    stream, recons, _ = t_pframe.LDPEncoder(cfg, tree="flat",
-                                            device="cpu").encode(frames)
+    stream, recons = t_pframe.LDPEncoder(cfg, tree="flat",
+                                         device="cpu").encode(frames)
     if not hm.decoder_available():
         pytest.skip("HM decoder binary missing: stream made, decode not")
     rc, log, rec_path = hm.decode_bytes(stream, str(tmp_path))
@@ -342,7 +343,7 @@ def test_filtered_stream_decodes_in_hm(tmp_path):
         _assert_frames_equal(d, r)
 
 
-@pytest.mark.parametrize("kw", [dict(tree="full", slice_mode="B"),
+@pytest.mark.parametrize("kw", [dict(tree="full", cu_qp_delta=True),
                                 dict(tree="flat", slice_mode="B"),
                                 dict(tree="flat", cu_qp_delta=True)])
 def test_unported_options_raise(kw):

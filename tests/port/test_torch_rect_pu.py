@@ -183,8 +183,8 @@ def test_rect_streams_match_jax():
                                   device="cpu")
         assert enc.rect_pu
         seen = _capture_searches(enc)
-        ts, tr, _ = enc.encode(frames, rate_control=_rc(t_rc, 4)
-                               if rate_control else None)
+        ts, tr = enc.encode(frames, rate_control=_rc(t_rc, 4)
+                            if rate_control else None)
         js, jr = jenc.encode([JFrame(f.y, f.cb, f.cr) for f in frames],
                              rate_control=_rc(j_rc, 4)
                              if rate_control else None)
@@ -258,7 +258,7 @@ def test_rect_multiref_stream_decodes_in_hm(tmp_path):
     cfg = EncoderConfig(W, H, qp=32, num_refs=4, deblock=True, sao=True)
     enc = t_pframe.LDPEncoder(cfg, lstm_params=_lstm_params(), device="cpu")
     seen = _capture_searches(enc)
-    stream, recons, _ = enc.encode(frames)
+    stream, recons = enc.encode(frames)
     _assert_rect(seen)
     if not hm.decoder_available():
         pytest.skip("HM decoder binary missing: stream made, decode not")
