@@ -5,8 +5,10 @@
 
 Prints `hevc_tpu_torch.pipeline.bench_hooks.bench_encode_1080p()` as one
 JSON line (metric `ai_encode_1080p`, frames/s on one GPU, with
-device_s / transfer_s / entropy_s and the kernels' launch counts). It
-runs on a CUDA device and fails without one: there is no fallback metric.
+device_s / transfer_s / entropy_s and the kernels' launch counts, and
+`vs_baseline` = frames/s x HM's seconds per frame from the port's cache
+`hevc_tpu_torch/pipeline/hm_baseline.json`). It runs on a CUDA device and
+fails without one, or without that cache: there is no fallback metric.
 """
 
 import argparse

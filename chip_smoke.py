@@ -42,8 +42,17 @@ filters on, ETH-LSTM; HM decodes the file with B slices and matching MD5)
 and All-Intra on two structured frames (filters on, ETH-CNN), holds a
 416x240 low-delay B stream made on the card equal to the CPU's, runs the
 port's own decoder on the card over three 416x240 streams (equal to the
-encoder's recons and to HM's output) and the 1080p B stream, and prints
-one JSON object per phase. The last line is
+encoder's recons and to HM's output) and the 1080p B stream, drives the
+TU-wavefront reconstruction backend at 1080p (`AIEncoder` and
+`FrameParallelAI` with `recon_backend="tu"`: streams equal to the K2
+streams at `nxn=False`, HM decode, the reconstruction timed and traced)
+and the golden backend at 416x240 (stream equal to K2's), compares the
+port's CU-depth labels of a 1080p frame with HM's, sweeps
+`evaltools.bdrate.compare` over QP 22/27/32/37 on two 1080p frames
+against HM (HM decodes the port's stream of each QP), runs the LDP
+benchmark `bench_encode_ldp_1080p`, and prints the HM baseline cache both
+benchmarks read their `vs_baseline` from, and prints one JSON object per
+phase. The last line is
 `{"ok": true, "device": {...}}`; any failed phase ends the run with a
 non-zero exit code and no such line. Without a CUDA device it fails at
 once.
@@ -86,7 +95,14 @@ SHAPES_1080P = {16: N_CTU_1080P * 16, 8: N_CTU_1080P * 64,
                 4: N_CTU_1080P * 256}
 
 
+#: the script's start, for the `t_s` (seconds since the start) of each
+#: phase line
+T_START = time.perf_counter()
+
+
 def say(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -401,13 +417,16 @@ def device_counts(prof):
     return kernels, copies, busy_us / 1e3
 
 
-def device_kernels(fn):
+def device_kernels(fn, host=True):
     """(kernels, copies and fills, device-busy ms of both) the device ran
-    for fn(), from a `torch.profiler` trace."""
+    for fn(), from a `torch.profiler` trace; host=False traces the
+    device's activity alone."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as p:
         fn()
         torch.cuda.synchronize()
     return device_counts(p)
@@ -1561,6 +1580,218 @@ def check_decoder_card(streams, big):
          "equals_hm": "416x240 streams", "streams": rec})
 
 
+def expect_launches(got, want, of):
+    """Fail unless the kernel launch counts `got` equal `want`, and the
+    plain reconstruction ran no batch."""
+    from hevc_tpu_torch.pipeline import recon
+    if got != want or recon.batches != 0:
+        fail(f"{of}: launches {got} (plain recon batches {recon.batches}), "
+             f"expected {want}")
+
+
+def tu_schedule_stats(depth8s):
+    """(levels, (step, size class) pairs that run, padded steps) of the
+    TU backend's schedule of frames with these depth maps, stacked as
+    FrameParallelAI stacks them."""
+    from hevc_tpu_torch.pipeline import recon_tu
+    stacked = recon_tu.stack_schedules(
+        [recon_tu.build_schedule(d)[0] for d in depth8s])
+    active = np.stack([stacked[s8][1].any(axis=(0, 2)) for s8 in (1, 2, 4)])
+    return (int(np.nonzero(active.any(0))[0].max()) + 1, int(active.sum()),
+            active.shape[1])
+
+
+def check_recon_tu_1080p(frames, cnn):
+    """The TU-wavefront backend (`recon_tu`, plain PyTorch) at 1080p: two
+    frames through `AIEncoder(recon_backend="tu")` and the eight through
+    `FrameParallelAI(recon_backend="tu")`, each stream equal to the K2
+    stream of the same encoder at `nxn=False`, HM decode with MD5; K1
+    twice per decide call (node sizes 16 and 8: NxN is off), K2 never;
+    then one frame's TU reconstruction traced (its ms per frame is the
+    encode's `recon_s`)."""
+    import dataclasses
+
+    from hevc_tpu_torch.core.yuv import pad_frame
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.parallel.frames import FrameParallelAI
+    from hevc_tpu_torch.pipeline import recon_tu
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
+    cfg = EncoderConfig(1920, 1080, qp=32)
+    cfg0 = dataclasses.replace(cfg, nxn=False)
+    out = {"phase": "recon_tu_1080p", "qp": 32, "nxn": False}
+    ai_auto = AIEncoder(cfg0, cnn=cnn).encode(frames[:2])
+    fp_auto = FrameParallelAI(cfg0, cnn=cnn, decide_chunk=2).encode(
+        frames, chunk=4)[0]
+
+    reset_launches()
+    enc = AIEncoder(cfg, cnn=cnn, recon_backend="tu")
+    t0 = time.perf_counter()
+    stream, recons, stats = enc.encode(frames[:2])
+    torch.cuda.synchronize()
+    out["aiencoder"] = {"frames": 2, "bytes": len(stream),
+                        "wall_s": time.perf_counter() - t0, **stats}
+    ai_launches = kernel_launches()
+    expect_launches(ai_launches, {"satd35": 2 * 2, "recon_frame": 0},
+                    "recon_tu_1080p AIEncoder")
+    if stream != ai_auto[0]:
+        fail("recon_tu_1080p: AIEncoder's TU stream differs from its K2 "
+             "stream at nxn=False")
+    hm_check(stream, recons, 1920, 1080, "recon_tu_1080p AIEncoder")
+
+    reset_launches()
+    penc = FrameParallelAI(cfg, cnn=cnn, decide_chunk=2, recon_backend="tu")
+    t0 = time.perf_counter()
+    pstream, pstats = penc.encode(frames, chunk=4)
+    torch.cuda.synchronize()
+    fp_launches = kernel_launches()
+    want_k1 = sum((md >= 2) + (md >= 3) for md, _ in penc.decide_batches)
+    expect_launches(fp_launches, {"satd35": want_k1, "recon_frame": 0},
+                    "recon_tu_1080p FrameParallelAI")
+    if want_k1 != 2 * len(penc.decide_batches):
+        fail(f"recon_tu_1080p: decide batches {penc.decide_batches}")
+    if pstream != fp_auto:
+        fail("recon_tu_1080p: FrameParallelAI's TU stream differs from its "
+             "K2 stream at nxn=False")
+    with tempfile.TemporaryDirectory() as tmp:
+        bs = os.path.join(tmp, "s.bin")
+        with open(bs, "wb") as f:
+            f.write(pstream)
+        hm_decode_file(bs, os.path.join(tmp, "r.yuv"),
+                       "recon_tu_1080p FrameParallelAI")
+    out["frameparallel"] = {
+        "frames": len(frames), "chunk": 4, "decide_chunk": 2,
+        "bytes": len(pstream), "wall_s": time.perf_counter() - t0,
+        "decide_batches": penc.decide_batches, **pstats}
+
+    # the reconstruction of one frame traced (device activity only: a
+    # trace of the host's operators too would hold millions of events)
+    pf = pad_frame(frames[0], cfg.pad_width, cfg.pad_height)
+    d8, m8 = enc.decide_frame(pf.y, None, pf.cb, pf.cr)
+    kernels, copies, busy = device_kernels(
+        lambda: recon_tu.reconstruct_tu(pf.y, pf.cb, pf.cr, d8, m8, qp=32,
+                                        pad_w=cfg.pad_width,
+                                        pad_h=cfg.pad_height),
+        host=False)
+    if kernels == 0:
+        fail("recon_tu_1080p: the trace holds no device kernel")
+    levels, pairs, padded = tu_schedule_stats([d8])
+    out["reconstruction"] = {
+        "ms_per_frame_in_encode": stats["recon_s"] / 2 * 1e3,
+        "levels": levels, "step_class_pairs": pairs,
+        "padded_steps": padded, "device_kernels": kernels,
+        "copies_fills": copies, "device_busy_ms": busy,
+        "frameparallel_device_ms_per_frame":
+            pstats["device_s"] / len(frames) * 1e3}
+    out.update(satd35_launches=fp_launches["satd35"],
+               recon_frame_launches=0, streams_equal_k2=True,
+               hm_md5="match")
+    say(out)
+    return ai_launches, fp_launches
+
+
+def check_golden_card(small, s_kernel, cnn):
+    """`AIEncoder(recon_backend="golden")` at 416x240, the decide on the
+    card, the host NumPy reconstruction: the K2 stream's bytes."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
+    reset_launches()
+    enc = AIEncoder(EncoderConfig(416, 240, qp=32), cnn=cnn,
+                    recon_backend="golden")
+    t0 = time.perf_counter()
+    stream, _, stats = enc.encode(small)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    expect_launches(launches, {"satd35": 3 * len(small), "recon_frame": 0},
+                    "golden_card")
+    if stream != s_kernel:
+        fail("golden_card: the golden backend's stream differs from K2's")
+    say({"phase": "golden_card", "size": "416x240", "frames": len(small),
+         "bytes": len(stream), "equals_k2_stream": True, "wall_s": wall,
+         "s_per_frame": wall / len(small), **stats,
+         "satd35_launches": launches["satd35"], "recon_frame_launches": 0})
+    return launches
+
+
+def check_labels_1080p(frame):
+    """CU-depth labels of one structured 1080p frame from HM (full RDO,
+    the in-repo encoder) and from the port's ungated search on the card
+    (K1 3, K2 0): shapes, depth shares and the share of the 16x16 units
+    they share where the two agree."""
+    from hevc_tpu_torch.train import labels
+    t0 = time.perf_counter()
+    hm_lab = labels.extract_labels_hm([frame], 32, 1920, 1080)
+    t_hm = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    own = labels.extract_labels_own([frame], 32, 1920, 1080)
+    t_own = time.perf_counter() - t0
+    launches = kernel_launches()
+    expect_launches(launches, {"satd35": 3, "recon_frame": 0}, "labels_1080p")
+    if hm_lab.shape != (1, 67, 120) or own.shape != (1, 68, 120):
+        fail(f"labels_1080p: shapes {hm_lab.shape} (HM), {own.shape} (own)")
+    if hm_lab.max() > 3 or own.max() > 3:
+        fail("labels_1080p: a depth above 3")
+    common = own[:, :67]
+    share = lambda a: [float(np.mean(a == d)) for d in range(4)]
+    say({"phase": "labels_1080p", "qp": 32, "hm_shape": list(hm_lab.shape),
+         "own_shape": list(own.shape), "hm_s": t_hm, "own_s": t_own,
+         "agreement": float(np.mean(common == hm_lab)),
+         "within_one": float(np.mean(np.abs(common.astype(int)
+                                            - hm_lab.astype(int)) <= 1)),
+         "hm_depth_shares": share(hm_lab), "own_depth_shares": share(common),
+         "satd35_launches": launches["satd35"], "recon_frame_launches": 0})
+    return launches
+
+
+def check_bdrate_1080p(frames, cnn):
+    """`bdrate.compare` on two structured 1080p frames at QP 22/27/32/37
+    (ETH-CNN qp30~35 for every QP, deblocking on), against HM; then HM
+    decodes the port's stream of each QP (made again with the MD5 SEI)."""
+    from hevc_tpu_torch.entropy.headers import EncoderConfig
+    from hevc_tpu_torch.evaltools import bdrate
+    from hevc_tpu_torch.pipeline.ai import AIEncoder
+    qps = (22, 27, 32, 37)
+    reset_launches()
+    out = bdrate.compare(frames, 1920, 1080, qps, cnn=cnn)
+    launches = kernel_launches()
+    n = len(qps) * len(frames)
+    expect_launches(launches, {"satd35": 3 * n,
+                               "recon_frame": RECON_LAUNCHES_1080P * n},
+                    "bdrate_1080p")
+    if not (np.isfinite(out["bd_rate_vs_hm"])
+            and np.isfinite(out["speedup_vs_hm"])):
+        fail(f"bdrate_1080p: not finite: {out}")
+    for qp in qps:
+        cfg = EncoderConfig(1920, 1080, qp=qp, deblock=True)
+        stream, recons, _ = AIEncoder(cfg, cnn=cnn).encode(frames)
+        hm_check(stream, recons, 1920, 1080, f"bdrate_1080p qp {qp}")
+    say({"phase": "bdrate_1080p", "frames": len(frames), "content":
+         "synth_1080p_structured", "weights": "eth_cnn_qp30~35 for every QP",
+         "ours_cfg": "deblock on, sao off", "hm_cfg": "hm_intra_cfg",
+         **out, "hm_decodes_each_qp": True,
+         "satd35_launches": launches["satd35"],
+         "recon_frame_launches": launches["recon_frame"]})
+    return launches
+
+
+def check_ldp_bench_1080p():
+    """`bench_encode_ldp_1080p()`: 16 structured frames through the
+    default `LDPEncoder(cfg, num_refs=4)` with the shipped ETH-LSTM after a
+    warm encode of 3; K1 3 (the IDR) + 2 per P-frame, K2 62 (the IDR)."""
+    from hevc_tpu_torch.pipeline import bench_hooks
+    res = bench_hooks.bench_encode_ldp_1080p()
+    d = res["detail"]
+    launches = {"satd35": d["satd35_launches"],
+                "recon_frame": d["recon_frame_launches"]}
+    expect_launches(launches, {"satd35": 3 + 2 * (d["n_frames"] - 1),
+                               "recon_frame": RECON_LAUNCHES_1080P},
+                    "ldp_bench_1080p")
+    if not (isinstance(res["vs_baseline"], float) and res["vs_baseline"] > 0):
+        fail(f"ldp_bench_1080p: vs_baseline {res['vs_baseline']}")
+    say({"phase": "ldp_bench_1080p", **res})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
@@ -1723,9 +1954,12 @@ def main():
          "plain_recon_batches": recon.batches, **pstats})
 
     # 7. the benchmark at a reduced depth (bench_torch.py runs 48 / 24 / 4)
-    say({"phase": "bench_encode_1080p",
-         **bench_hooks.bench_encode_1080p(n_frames=16, chunk=8,
-                                          decide_chunk=4)})
+    bench_ai = bench_hooks.bench_encode_1080p(n_frames=16, chunk=8,
+                                             decide_chunk=4)
+    if not (isinstance(bench_ai["vs_baseline"], float)
+            and bench_ai["vs_baseline"] > 0):
+        fail(f"bench_encode_1080p: vs_baseline {bench_ai['vs_baseline']}")
+    say({"phase": "bench_encode_1080p", **bench_ai})
 
     # 8. kernel path vs plain path, same frames at 416x240: same bytes.
     # Both kernels are swapped for their plain versions, this check only.
@@ -1818,7 +2052,25 @@ def main():
                         "ldp_rect_card_vs_cpu": (*rect_small, 416, 240)},
                        (ldb_stream, ldb_recons))
 
-    # 17. the kernels of the main paths. satd35: times are sums over the
+    # 17. the All-Intra backends, labels, BD-rate and the HM baselines:
+    # the TU-wavefront backend at 1080p (AIEncoder and FrameParallelAI,
+    # streams equal to K2's at nxn=False, HM decode), the golden backend
+    # at 416x240 with the decide on the card, own vs HM labels of one
+    # 1080p frame, the BD-rate sweep against HM on two 1080p frames, the
+    # LDP benchmark, and the HM cache both benchmarks read
+    tu_ai_launches, tu_fp_launches = check_recon_tu_1080p(frames, cnn)
+    golden_launches = check_golden_card(small, s_kernel, cnn)
+    label_launches = check_labels_1080p(frames[0])
+    bd_launches = check_bdrate_1080p(frames[:2], cnn)
+    ldp_bench_launches = check_ldp_bench_1080p()
+    say({"phase": "hm_baseline", "cache": os.path.relpath(
+        bench_hooks.HM_BASELINE_CACHE, ROOT),
+         **bench_hooks.read_hm_baseline(),
+         "bench_encode_1080p_frames": bench_ai["detail"]["n_frames"],
+         "bench_encode_1080p_frames_per_s": bench_ai["value"],
+         "bench_encode_1080p_vs_baseline": bench_ai["vs_baseline"]})
+
+    # 18. the kernels of the main paths. satd35: times are sums over the
     # three launches of one 1080p frame. recon_frame: one 1080p frame
     # (frame batch of 1), the 8-frame batch beside it. `launches` is the
     # count from the frame-batched path; both paths are in launches_by_path.
@@ -1839,7 +2091,15 @@ def main():
         "LDPEncoder.encode rect 4 refs rate_control 1080p":
             rc_ldp_launches[name],
         "apps.encoder ldb 1080p": app_ldb_launches[name],
-        "apps.encoder ai deblock+sao 1080p": app_ai_launches[name]}
+        "apps.encoder ai deblock+sao 1080p": app_ai_launches[name],
+        "AIEncoder.encode recon_backend=tu 1080p": tu_ai_launches[name],
+        "FrameParallelAI.encode recon_backend=tu 1080p":
+            tu_fp_launches[name],
+        "AIEncoder.encode recon_backend=golden 416x240":
+            golden_launches[name],
+        "train.labels.extract_labels_own 1080p": label_launches[name],
+        "evaltools.bdrate.compare 1080p 4 QPs": bd_launches[name],
+        "bench_encode_ldp_1080p": ldp_bench_launches[name]}
     regs = lambda k1: {
         fn: {k: r.get(k) for k in ("registers", "spill_store_bytes",
                                    "spill_load_bytes")}

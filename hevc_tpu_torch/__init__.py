@@ -13,7 +13,8 @@ native    : C++ slice-data CABAC coder, loaded with ctypes
 ops       : integer DCT/DST, quant, RDOQ, intra prediction, SATD, bit model,
             in-loop filters (deblocking, SAO), inter MC and motion search
 models    : ETH-CNN, ETH-LSTM, HCPM gating
-pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder),
+pipeline  : the All-Intra encoder (search, reconstruction, AIEncoder with
+            the golden and TU-wavefront backends), the HM baselines,
             picture-level rate control, the Low-Delay-P predictor chain
             (pre-encode residue -> ETH-LSTM HCPM, LDPPipeline) and the
             low-delay encoder (LDPEncoder: flat tree, or the CU-tree P
@@ -23,7 +24,9 @@ decoder   : the standalone decoder (host parsing, reconstruction and
             filters through the encoder's ops)
 apps      : the TAppEncoder / TAppDecoder command lines (HM cfg files,
             core/config) and the App/utils tools
-evaltools : the HM reference decoder as an oracle
+evaltools : the HM reference decoder and encoder as oracles, and the
+            BD-rate harness against HM
+train     : CU-depth labels (own search and HM) and the HM cfg texts
 csrc      : CUDA sources of the kernels
 
 The float RD costs and the CNN probabilities feed hard comparisons, so

@@ -210,6 +210,17 @@ def load_npz(path, device=None) -> EthCnn:
     return EthCnn.from_numpy(params, device=device)
 
 
+#: the QP bands of the checkpoints (reference video_to_cu_depth.py:126-133
+#: QP-banded model selection); the shipped `models/eth_{cnn,lstm}_{band}
+#: .npz` files are named by them
+QP_BANDS = {
+    "qp20~25": range(20, 25),
+    "qp25~30": range(25, 30),
+    "qp30~35": range(30, 35),
+    "qp35~40": range(35, 52),
+}
+
+
 def band_for_qp(qp: int) -> str:
     """QP-banded model selection: the checkpoint band trained for `qp`."""
     if qp < 25:

@@ -60,3 +60,18 @@ def satd(a, b, block: int = 8):
     else:
         s = (s + 1) >> 1
     return s.sum((-2, -1), dtype=torch.int32)
+
+
+def satd_np(a, b, block: int = 8):
+    """NumPy twin of `satd` (int64, exact): the golden encoder's mode
+    decision on the host."""
+    d = np.asarray(a, np.int64) - np.asarray(b, np.int64)
+    *lead, H, W = d.shape
+    k = block
+    h = _hadamard(k).astype(np.int64)
+    d = d.reshape(*lead, H // k, k, W // k, k)
+    d = np.moveaxis(d, -3, -2)
+    t = np.einsum("ij,...jk,kl->...il", h, d, h)
+    s = np.abs(t).sum((-2, -1))
+    s = ((s + 2) >> 2) if k == 8 else ((s + 1) >> 1)
+    return s.sum((-2, -1)).astype(np.int64)

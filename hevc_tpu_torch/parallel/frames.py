@@ -9,13 +9,17 @@ device between the two stages; only the coefficient planes (and, for the
 picture-hash SEI, the reconstructions) come back to the host, where the
 native CABAC coder packs the slices.
 
+With `recon_backend="tu"` the decide runs with NxN off and the frame batch
+is reconstructed by the TU-level wavefront (`pipeline/recon_tu`, plain
+PyTorch): each frame's schedule is built on the host from its depth map,
+and the schedules are stacked to common shapes.
+
 Usage:
     penc = FrameParallelAI(cfg, cnn=eth_cnn.load_npz(path))
     stream, stats = penc.encode(frames, chunk=24)
 
-Not ported yet (each raises `NotImplementedError`): `recon_backend="tu"`,
-a device mesh (sharding the frame batch over several devices), and
-`ChainParallelLDP`.
+Not ported yet (each raises `NotImplementedError`): a device mesh
+(sharding the frame batch over several devices), and `ChainParallelLDP`.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from .. import resolve_device
 from ..core.yuv import Frame, pad_frame
 from ..entropy import headers
 from ..models import eth_cnn, hcpm
-from ..pipeline import golden, recon, search
+from ..pipeline import golden, recon, recon_tu, search
 from ..pipeline.ai import entropy_encode_slice
 
 
@@ -57,15 +61,16 @@ class FrameParallelAI:
         out the deep CU levels are searched with a smaller `max_depth`
         (no depth-3 / NxN work at all), grouped by that depth — the
         counterpart of the reference's RD-check skipping
-        (TEncCu.cpp:862-873). The stream is the same either way."""
+        (TEncCu.cpp:862-873). The stream is the same either way.
+
+        recon_backend: "auto" (the reconstruction kernel on the card, its
+        plain version on the CPU) or "tu" (`pipeline/recon_tu`, NxN off in
+        the decide, RDOQ always on, as in the reference)."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharding the frame batch over a device mesh "
                 "(parallel/mesh.py) is not ported yet")
-        if recon_backend == "tu":
-            raise NotImplementedError(
-                'recon_backend="tu" (pipeline/recon_tu.py) is not ported yet')
-        if recon_backend != "auto":
+        if recon_backend not in ("auto", "tu"):
             raise ValueError(f"unknown recon_backend {recon_backend!r}")
         if cfg.deblock or cfg.sao:
             # the reference FrameParallelAI writes the filter flags into
@@ -80,6 +85,9 @@ class FrameParallelAI:
         if getattr(cfg, "cu_qp_delta", False):
             raise NotImplementedError("per-CTU QP is not ported yet")
         self.cfg = cfg
+        self.recon_backend = recon_backend
+        # the TU backend codes TU == CU: its decide runs with NxN off
+        self._nxn = cfg.nxn and recon_backend == "auto"
         self.device = resolve_device(device)
         self.cnn = cnn.to(self.device) if cnn is not None else None
         self.thr = thresholds or hcpm.DEFAULT_AI
@@ -136,7 +144,7 @@ class FrameParallelAI:
         res = search.search_frame(
             ys, self._origins, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
             n_ctu_x=cfg.ctus_x, qp=cfg.qp, cb_plane=cbs, cr_plane=crs,
-            nxn=cfg.nxn, **kw)
+            nxn=self._nxn, **kw)
         return (self._assemble(res.depth8, 8), self._assemble(res.modes8, 8),
                 self._assemble(res.modes4, 16), self._assemble(res.nxn8, 8))
 
@@ -178,28 +186,46 @@ class FrameParallelAI:
                     outs[i] = tuple(x[k] for x in o)
         return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
 
-    def _run_full(self, ys, cbs, crs):
-        """Decide (optionally in sub-batches, see __init__.decide_chunk)
-        then reconstruct the whole batch. Everything stays on the device;
-        on a CUDA device nothing here waits for it."""
-        cfg = self.cfg
+    def _decide(self, ys, cbs, crs):
+        """Decide (optionally in sub-batches, see __init__.decide_chunk):
+        frame-level decision maps (depth8, modes8, modes4, nxn8), device
+        tensors with a leading F."""
         F = ys.shape[0]
         if self.cnn is not None and self.bucket_max_depth:
-            d, m, m4, nxn = self._decide_bucketed(ys, cbs, crs)
-        else:
-            dc = self.decide_chunk if self.decide_chunk > 0 else F
-            outs = []
-            for i in range(0, F, dc):       # the last sub-batch may be short
-                sl = slice(i, min(i + dc, F))
-                probs = (self._cnn_probs(ys[sl]) if self.cnn is not None
-                         else None)
-                outs.append(self._decide_stage(ys[sl], cbs[sl], crs[sl],
-                                               probs))
-            d, m, m4, nxn = (torch.cat([o[k] for o in outs])
-                             for k in range(4))
+            return self._decide_bucketed(ys, cbs, crs)
+        dc = self.decide_chunk if self.decide_chunk > 0 else F
+        outs = []
+        for i in range(0, F, dc):           # the last sub-batch may be short
+            sl = slice(i, min(i + dc, F))
+            probs = (self._cnn_probs(ys[sl]) if self.cnn is not None
+                     else None)
+            outs.append(self._decide_stage(ys[sl], cbs[sl], crs[sl], probs))
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(4))
+
+    def _run_full(self, ys, cbs, crs):
+        """Decide, then reconstruct the whole batch with the
+        reconstruction kernel. Everything stays on the device; on a CUDA
+        device nothing here waits for it."""
+        cfg = self.cfg
+        d, m, m4, nxn = self._decide(ys, cbs, crs)
         planes = recon.encode_frame_planes_batched(
             ys, cbs, crs, d, m4, nxn, qp=cfg.qp, pad_w=cfg.pad_width,
             pad_h=cfg.pad_height, rdoq=cfg.rdoq)
+        return d, m, m4, nxn, planes
+
+    def _run_tu(self, ys, cbs, crs):
+        """Decide (NxN off) -> per-frame TU schedules (host, from the
+        depth maps, which waits for the decide) -> the TU-level wavefront
+        over the frame batch (device)."""
+        cfg = self.cfg
+        d, m, m4, nxn = self._decide(ys, cbs, crs)
+        d_host = d.cpu().numpy()
+        stacked = recon_tu.stack_schedules(
+            [recon_tu.build_schedule(d_host[i])[0]
+             for i in range(d_host.shape[0])])
+        planes = recon_tu.encode_frame_planes_tu_inner(
+            ys, cbs, crs, m, *(a for s8 in (1, 2, 4) for a in stacked[s8]),
+            qp=cfg.qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height)
         return d, m, m4, nxn, planes
 
     # --- one frame group: launch on the device, drain on the host -----------
@@ -217,7 +243,8 @@ class FrameParallelAI:
 
         ys, cbs, crs = up("y"), up("cb"), up("cr")
         t0 = time.perf_counter()
-        out = self._run_full(ys, cbs, crs)
+        run = self._run_tu if self.recon_backend == "tu" else self._run_full
+        out = run(ys, cbs, crs)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

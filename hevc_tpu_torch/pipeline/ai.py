@@ -6,10 +6,16 @@ normative wavefront reconstruction (pipeline/recon.py: the
 reconstruction kernel on the card) and the optional deblocking and SAO
 (ops/deblock.py, ops/sao.py) run on the device as tensors; the SAO
 parameter decision and CABAC run on the host (native C++ coder).
+
+Two other reconstruction backends, as in the reference: `"golden"`, the
+sequential NumPy encoder on the host (pipeline/golden.py), and `"tu"`,
+the TU-level wavefront in plain PyTorch on the device
+(pipeline/recon_tu.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -22,19 +28,42 @@ from ..entropy import headers
 from ..entropy.bitstream import NAL_IDR_W_RADL, nal_unit
 from ..models import eth_cnn, hcpm
 from ..ops import deblock, sao
-from . import golden, recon, search
+from . import golden, recon, recon_tu, search
+
+RECON_BACKENDS = ("auto", "golden", "tu")
 
 
 class AIEncoder:
     def __init__(self, cfg: headers.EncoderConfig,
                  cnn: Optional[eth_cnn.EthCnn] = None,
                  thresholds: Optional[hcpm.Thresholds] = None,
-                 max_depth_exit: bool = False, device=None):
+                 max_depth_exit: bool = False, device=None,
+                 recon_backend: str = "auto"):
         """cnn: an `eth_cnn.EthCnn` (e.g. `eth_cnn.load_npz(path)`), or
         None for the ungated full search. device=None means the card; with
-        no card that raises (pass device="cpu" to run on the CPU)."""
+        no card that raises (pass device="cpu" to run on the CPU).
+
+        recon_backend: "auto" reconstructs through
+        `recon.encode_frame_planes_batched` (the reconstruction kernel on
+        CUDA tensors, its plain version on CPU tensors); "golden" through
+        `golden.GoldenEncoder.encode_frame` on the host, at `cfg.qp` and
+        without the filters, as the reference's golden backend codes — so
+        it raises for deblocking, SAO or a rate controller; "tu" through
+        `recon_tu.reconstruct_tu` on the device, which codes TU == CU, so
+        NxN is turned off in the config (as the reference does); it keeps
+        the filters and the frame's QP."""
         if getattr(cfg, "cu_qp_delta", False):
             raise NotImplementedError("per-CTU QP is not ported yet")
+        if recon_backend not in RECON_BACKENDS:
+            raise ValueError(f"unknown recon_backend {recon_backend!r}")
+        if recon_backend == "golden" and (cfg.deblock or cfg.sao):
+            raise NotImplementedError(
+                'recon_backend="golden" runs no deblocking or SAO: the '
+                "reference's golden backend returns before the filters "
+                '(use "auto" or "tu" for filtered encodes)')
+        if recon_backend == "tu" and cfg.nxn:
+            cfg = dataclasses.replace(cfg, nxn=False)
+        self.recon_backend = recon_backend
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cnn = cnn.to(self.device) if cnn is not None else None
@@ -109,6 +138,11 @@ class AIEncoder:
         """Encode a sequence; returns (annexb bytes, recons, stats).
         rate_control: optional pipeline/ratectrl.RateController — picks
         a per-picture QP and is updated with actual bits."""
+        if rate_control is not None and self.recon_backend == "golden":
+            raise NotImplementedError(
+                'recon_backend="golden" codes every picture at cfg.qp, as '
+                "the reference's golden encoder does, so it takes no rate "
+                'controller (use "auto" or "tu")')
         cfg = self.cfg
         chunks = [headers.write_vps(cfg), headers.write_sps(cfg),
                   headers.write_pps(cfg)]
@@ -146,12 +180,14 @@ class AIEncoder:
 
     def reconstruct(self, pf, depth8, modes8, qp=None, modes4=None,
                     nxn8=None):
-        """Normative reconstruction + coefficients: a frame batch of one
-        through `recon.encode_frame_planes_batched` (the reconstruction
-        kernel on the card, the plain version on the CPU), then, as the
-        config asks, deblocking and SAO on the device (a pure post-pass:
-        intra prediction used the unfiltered samples). Only the final
-        planes go to the host.
+        """Normative reconstruction + coefficients through the backend
+        (see __init__): "auto" runs a frame batch of one through
+        `recon.encode_frame_planes_batched` (the reconstruction kernel on
+        the card, the plain version on the CPU), "tu" through
+        `recon_tu.reconstruct_tu`; then, as the config asks, deblocking
+        and SAO on the device (a pure post-pass: intra prediction used the
+        unfiltered samples). Only the final planes go to the host. "golden"
+        returns `GoldenEncoder.encode_frame`'s result as it is.
         modes4/nxn8: NxN decisions; None = all CUs 2Nx2N.
         Returns (decisions dict of host arrays, recon Frame); with SAO
         on, decisions["sao"] holds the `sao.SaoParams`."""
@@ -161,12 +197,25 @@ class AIEncoder:
             modes4 = np.repeat(np.repeat(modes8, 2, 0), 2, 1)
         if nxn8 is None:
             nxn8 = np.zeros_like(np.asarray(depth8), bool)
-        planes = recon.encode_frame_planes_batched(
-            *(np.asarray(a)[None] for a in (pf.y, pf.cb, pf.cr, depth8,
-                                            modes4, nxn8)),
-            qp=qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
-            rdoq=cfg.rdoq, device=self.device)
-        y, cb, cr = (p[0] for p in planes[:3])
+        if self.recon_backend == "golden":
+            if qp != cfg.qp:
+                raise NotImplementedError(
+                    'recon_backend="golden" codes at cfg.qp only')
+            return golden.GoldenEncoder(cfg).encode_frame(
+                pf, depth8, modes8, modes4=modes4, nxn8=nxn8)
+        if self.recon_backend == "tu":
+            planes = recon_tu.reconstruct_tu(
+                pf.y, pf.cb, pf.cr, depth8, modes8, qp=qp,
+                pad_w=cfg.pad_width, pad_h=cfg.pad_height,
+                device=self.device)
+        else:
+            planes = recon.encode_frame_planes_batched(
+                *(np.asarray(a)[None] for a in (pf.y, pf.cb, pf.cr, depth8,
+                                                modes4, nxn8)),
+                qp=qp, pad_w=cfg.pad_width, pad_h=cfg.pad_height,
+                rdoq=cfg.rdoq, device=self.device)
+            planes = recon.FramePlanes(*(p[0] for p in planes))
+        y, cb, cr = planes[:3]
         decisions = dict(depth8=depth8, modes8=modes8, modes4=modes4,
                          nxn8=nxn8)
         if cfg.deblock:
@@ -179,7 +228,7 @@ class AIEncoder:
         # to the host (waits for the device)
         rec = Frame(*(p.to(torch.uint8).cpu().numpy() for p in (y, cb, cr)))
         decisions.update(zip(("coef_y", "coef_cb", "coef_cr"),
-                             (p[0].cpu().numpy() for p in planes[3:])))
+                             (p.cpu().numpy() for p in planes[3:])))
         return decisions, rec
 
 

@@ -1,18 +1,33 @@
-"""Benchmark entry point, synthetic content and work counts for the port's
-drives and smoke runs."""
+"""Benchmark entry points, the HM baselines they are compared with,
+synthetic content and work counts for the port's drives and smoke runs.
+
+The HM baselines are seconds per frame of the in-repo HM-16.5 encoder
+(`tools/hm/TAppEncoderStatic`) on the benchmark's own content, timed once
+on the GPU machine's host by `measure_hm_baseline(force=True)` and
+`measure_hm_ldp_baseline(force=True)` and cached in the port's own file,
+`HM_BASELINE_CACHE`. The benchmarks only read the cache (a missing cache
+or key raises); they never run HM.
+"""
 
 from __future__ import annotations
 
+import json
 import os
+import subprocess
+import tempfile
 import time
 
 import numpy as np
 
-from ..core.yuv import Frame
+from ..core.yuv import Frame, write_yuv420
 
+_MODELS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                       "models")
 #: the shipped ETH-CNN checkpoint of the QP 30..35 band
-WEIGHTS_QP32 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "..", "..", "models", "eth_cnn_qp30~35.npz")
+WEIGHTS_QP32 = os.path.join(_MODELS, "eth_cnn_qp30~35.npz")
+#: the port's HM timing cache (JSON), written only by the measure_* calls
+HM_BASELINE_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "hm_baseline.json")
 
 
 def synth_structured(n_frames=2, seed=7, width=1920, height=1080):
@@ -190,6 +205,145 @@ def recon_tu_step_us(device, reps=10):
     return out
 
 
+def read_hm_baseline():
+    """The port's HM baseline cache (a dict). Never encodes; a missing
+    file raises."""
+    with open(HM_BASELINE_CACHE) as f:
+        return json.load(f)
+
+
+def hm_seconds_per_frame(key):
+    """One entry of the cache; a missing key raises, naming the call that
+    measures it."""
+    base = read_hm_baseline()
+    if key not in base:
+        raise KeyError(f"{key} is not in {HM_BASELINE_CACHE}: time HM with "
+                       "measure_hm_baseline(force=True) / "
+                       "measure_hm_ldp_baseline(force=True) on this host")
+    return base[key]
+
+
+def _host_cpu():
+    """The host CPU as /proc/cpuinfo names it (Linux), or None: the model
+    name with the vendor, family and model numbers (a virtual machine may
+    report the name as "unknown")."""
+    if not os.path.exists("/proc/cpuinfo"):
+        return None
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name')} ({info.get('vendor_id')} family "
+            f"{info.get('cpu family')} model {info.get('model')}, "
+            f"{os.cpu_count()} CPUs)")
+
+
+def _time_hm(cfg_text, frames, timeout):
+    """Seconds of one HM encode of `frames` with this cfg text."""
+    from ..evaltools.hm import ENCODER
+    with tempfile.TemporaryDirectory() as td:
+        write_yuv420(os.path.join(td, "in.yuv"), frames)
+        with open(os.path.join(td, "enc.cfg"), "w") as f:
+            f.write(cfg_text)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [ENCODER, "-c", "enc.cfg", "-i", "in.yuv", "-b", "str.bin"],
+            cwd=td, capture_output=True, text=True, timeout=timeout)
+        dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"HM encoder failed:\n{proc.stderr}")
+    return dt
+
+
+def _measure(key, n_key, cfg_fn, n_frames, force, timeout, width, height):
+    """Time HM once on the structured clip (QP 32) unless the cache
+    already holds `key`; merge the result into the cache."""
+    base = {}
+    if os.path.exists(HM_BASELINE_CACHE):
+        base = read_hm_baseline()
+    if key in base and not force:
+        return base
+    frames = synth_structured(n_frames, 7, width, height)
+    dt = _time_hm(cfg_fn(width, height, 32, n_frames), frames, timeout)
+    base.update({key: dt / n_frames, n_key: n_frames,
+                 "host_cpu": _host_cpu()})
+    with open(HM_BASELINE_CACHE, "w") as f:
+        json.dump(base, f, indent=1)
+    return base
+
+
+def measure_hm_baseline(n_frames=2, force=False, timeout=3600, width=1920,
+                        height=1080):
+    """HM All-Intra seconds per frame of the structured clip at QP 32
+    (`train.labels.hm_intra_cfg`: SAO and deblocking on), on this host,
+    cached under `hm_seconds_per_frame_{height}p_ai_qp32`."""
+    from ..train.labels import hm_intra_cfg
+    return _measure(f"hm_seconds_per_frame_{height}p_ai_qp32", "n_frames",
+                    hm_intra_cfg, n_frames, force, timeout, width, height)
+
+
+def measure_hm_ldp_baseline(n_frames=4, force=False, timeout=7200,
+                            width=1920, height=1080):
+    """HM Low-Delay-P seconds per frame of the structured clip at QP 32
+    (`train.labels.hm_ldp_cfg`), on this host, cached under
+    `hm_seconds_per_frame_{height}p_ldp_qp32`."""
+    from ..train.labels import hm_ldp_cfg
+    return _measure(f"hm_seconds_per_frame_{height}p_ldp_qp32",
+                    "ldp_n_frames", hm_ldp_cfg, n_frames, force, timeout,
+                    width, height)
+
+
+def load_trained_lstm(qp=32):
+    """The shipped ETH-LSTM checkpoint of `qp`'s band as the dict of NumPy
+    arrays `LDPEncoder(lstm_params=)` takes (a missing file raises)."""
+    from ..models.eth_cnn import band_for_qp
+    with np.load(os.path.join(_MODELS,
+                              f"eth_lstm_{band_for_qp(qp)}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def bench_encode_ldp_1080p(n_frames=16, warm=3):
+    """Low-Delay-P 1080p throughput on the card: the default
+    `LDPEncoder(cfg)` (CU tree, rectangular PUs, four references) gated by
+    the shipped ETH-LSTM at QP 32, on the structured clip, sequential per
+    frame as the inter dependency demands, after a warm encode of `warm`
+    frames. `vs_baseline` = frames/s x HM's cached LDP seconds per frame."""
+    import torch
+
+    from ..entropy import headers
+    from ..ops import intra_mm
+    from . import recon, recon_kernel
+    from .pframe import LDPEncoder
+
+    cfg = headers.EncoderConfig(width=1920, height=1080, qp=32, num_refs=4)
+    hm_spf = hm_seconds_per_frame("hm_seconds_per_frame_1080p_ldp_qp32")
+    enc = LDPEncoder(cfg, lstm_params=load_trained_lstm(cfg.qp))
+    frames = synth_1080p_structured(n_frames)
+    enc.encode(frames[:warm], with_hash_sei=False)
+    torch.cuda.synchronize()
+
+    intra_mm.launches = recon_kernel.launches = recon.batches = 0
+    t0 = time.perf_counter()
+    stream, _ = enc.encode(frames, with_hash_sei=False)
+    dt = time.perf_counter() - t0
+    fps = n_frames / dt
+    return {
+        "metric": "ldp_encode_1080p",
+        "value": fps,
+        "unit": "frames/s/chip",
+        "vs_baseline": fps * hm_spf,
+        "gated": True,
+        "stream_bytes": len(stream),
+        "detail": {"n_frames": n_frames, "warm": warm, "wall_s": dt,
+                   "hm_seconds_per_frame": hm_spf,
+                   "satd35_launches": intra_mm.launches,
+                   "recon_frame_launches": recon_kernel.launches,
+                   "plain_recon_batches": recon.batches,
+                   "device": torch.cuda.get_device_name(0)},
+    }
+
+
 def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
     """Full-pipeline All-Intra 1080p benchmark on the card; returns the
     dictionary `bench_torch.py` prints.
@@ -200,7 +354,8 @@ def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
     dependent launches costs about the same for 1 and for 24 frames),
     the decide stage in sub-batches of `decide_chunk` inside each chunk.
     One chunk is encoded first as a warm-up (kernel builds, host tables).
-    `vs_baseline` is null: no HM encode was timed on this machine."""
+    `vs_baseline` = frames/s x HM's cached All-Intra seconds per frame
+    (`HM_BASELINE_CACHE`; HM's cfg filters, this path does not)."""
     import torch
 
     from ..entropy import headers
@@ -210,6 +365,7 @@ def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
     from . import recon, recon_kernel
 
     cfg = headers.EncoderConfig(width=1920, height=1080, qp=32)
+    hm_spf = hm_seconds_per_frame("hm_seconds_per_frame_1080p_ai_qp32")
     enc = pframes.FrameParallelAI(cfg, cnn=eth_cnn.load_npz(WEIGHTS_QP32),
                                   decide_chunk=decide_chunk)
     frames = synth_1080p_structured(n_frames)
@@ -224,7 +380,7 @@ def bench_encode_1080p(n_frames=48, chunk=24, decide_chunk=4):
         "metric": "ai_encode_1080p",
         "value": n_frames / dt,
         "unit": "frames/s/chip",
-        "vs_baseline": None,
+        "vs_baseline": n_frames / dt * hm_spf,
         "detail": {**stats, "n_frames": n_frames, "chunk": chunk,
                    "decide_chunk": decide_chunk, "wall_s": dt,
                    "satd35_launches": intra_mm.launches,

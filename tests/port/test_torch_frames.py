@@ -154,8 +154,12 @@ def test_unported_options_raise(what):
         with pytest.raises(NotImplementedError):
             FrameParallelAI(cfg, mesh=object(), device="cpu")
     elif what == "tu":
-        with pytest.raises(NotImplementedError):
-            FrameParallelAI(cfg, recon_backend="tu", device="cpu")
+        # the TU backend is ported; it refuses the filters as "auto" does
+        assert FrameParallelAI(cfg, recon_backend="tu",
+                               device="cpu").recon_backend == "tu"
+        with pytest.raises(NotImplementedError, match="signals the filters"):
+            FrameParallelAI(t_headers.EncoderConfig(64, 64, deblock=True),
+                            recon_backend="tu", device="cpu")
     elif what == "chain_ldp":
         with pytest.raises(NotImplementedError):
             t_frames.ChainParallelLDP(cfg)
